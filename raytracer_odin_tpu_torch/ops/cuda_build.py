@@ -1,0 +1,77 @@
+"""Build and load the port's CUDA kernels (csrc/intersect_kernels.cu).
+
+nvcc compiles the source into a shared library with a plain C interface at
+first use, into the gitignored `raytracer_odin_tpu_torch/build/` directory,
+and ctypes loads it. No PyTorch header is compiled, so the build takes
+seconds. Nothing here runs at import: the CPU tests import every module on
+a machine without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG_ROOT = Path(__file__).resolve().parents[1]
+SOURCE = _PKG_ROOT / "csrc" / "intersect_kernels.cu"
+BUILD_DIR = _PKG_ROOT / "build"
+_SO = BUILD_DIR / "librt_intersect_sm90a.so"
+
+# -fmad=false and IEEE division (no --use_fast_math) make the kernels round
+# every expression as the plain PyTorch versions do: bit-equal results.
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-prec-div=true",
+    "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_lib = None
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def build() -> str:
+    """Compile the kernels; returns nvcc's report (ptxas -v resource use).
+    Raises RuntimeError with the compiler's output when the build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    report = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{report}")
+    tmp.replace(_SO)
+    return report
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, built first if it is missing or older
+    than its source."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if not _SO.exists() or _SO.stat().st_mtime < SOURCE.stat().st_mtime:
+            build()
+        lib = ctypes.CDLL(str(_SO))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.rt_mask_launch.argtypes = [p, p, p, i, i, i, i, p]
+        lib.rt_mask_launch.restype = i
+        lib.rt_culled_launch.argtypes = [p, p, i, p, i, p, i, p, p]
+        lib.rt_culled_launch.restype = i
+        _lib = lib
+        return _lib

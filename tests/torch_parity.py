@@ -1,0 +1,23 @@
+"""Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
+hand a JAX DeviceScene to the port as numpy, on the CPU.
+
+Importing it keeps PyTorch to one intra-op thread in the test process: the
+suite runs several workers on shared cores, and PyTorch's default of one
+thread per core made the render tests ten times slower under that
+contention (376 s instead of 37 s)."""
+
+import numpy as np
+import torch
+
+from raytracer_odin_tpu_torch.models.scene import TENSOR_FIELDS, scene_from_numpy
+
+torch.set_num_threads(1)
+
+
+def torch_scene(jax_scene, device="cpu"):
+    """The port's DeviceScene holding the JAX scene's arrays."""
+    arrays = {f: np.asarray(getattr(jax_scene, f)) for f in TENSOR_FIELDS}
+    return scene_from_numpy(
+        arrays, env_tex=jax_scene.env_tex, row_spec=jax_scene.row_spec,
+        tex_kinds=jax_scene.tex_kinds, device=device,
+    )
