@@ -36,8 +36,8 @@ import json
 import subprocess
 import sys
 import tempfile
-import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -141,15 +141,12 @@ def measure_k1(pi, aabb8, rays, n_bits, dev, reps):
             "max_abs_err": float((got.long() - want.long()).abs().max())}
 
 
-def measure_k2(pi, culling, scene, words, rays, n_super, dev, reps):
+def measure_k2(pi, trav, scene, words, rays, n_super, dev, reps):
     """K2 on the exact lists of (words, rays): bit equality with the plain
     version, times and the bound from this batch's list lengths."""
     import torch
 
-    counts, lists = culling.build_lists(
-        culling.unpack_mask(culling.or_blocks_packed(words, pi.RB_SUB),
-                            n_super),
-        cap=256)
+    counts, lists = trav.exact_lists(words, n_super)
     tris = scene.ptri
     got = pi.intersect_culled_rows(tris, counts, lists, rays)
     want = pi._culled_plain(counts, lists, rays, tris)
@@ -180,67 +177,23 @@ def measure_k2(pi, culling, scene, words, rays, n_super, dev, reps):
                 if finite.numel() else 0.0))}
 
 
-def bounce1_batch(rt, integ, trav, prng, pi, scene, fov_x, w, h, dev):
-    """The calibration sample's bounce 0 and its sorted, compacted bounce-1
-    batch, built with the port's own functions exactly as
-    integrator._trace_compacted builds it: (camera rays [8, Npad], their
-    masks, sorted bounce-1 rows [8, s_width], their masks)."""
-    import torch
-
-    from raytracer_odin_tpu_torch.ops import culling
-
-    key = prng.key_from_seed(0)
-    sids = (torch.arange(h, dtype=torch.int32, device=dev)[:, None] * w
-            + torch.arange(w, dtype=torch.int32, device=dev)[None, :])
-    jitter = prng.uniforms(key, 0, prng.JITTER_TAG, sids, 2)
-    o, d = rt.generate_rays(scene.cam_pos, scene.cam_basis, fov_x, w, h,
-                            jitter)
+def kernel_batches(rt, integ, trav, prng, pi, scene, cfg, fov_x, dev):
+    """The kernels' inputs in the calibration sample of `cfg`, built by the
+    main path's own functions: the bounce-0 camera rays in tile order with
+    their masks, and the sorted bounce-1 batch cut to the lane budget that
+    auto_lane_schedule gives it, with its masks. Returns (rays0, words0,
+    rays1, words1, aabb8, n_super, live lanes entering bounce 1)."""
+    budget = rt.auto_lane_schedule(scene, cfg, fov_x, device=dev)[0]
+    key = prng.key_from_seed(cfg.seed)
+    o, d = rt.camera_rays(scene, key, 0, fov_x, cfg.width, cfg.height)
     _, n_super, aabb8 = trav.exact_cull_layout(scene)
-    # bounce-0 camera rays in the tiled order of the cast
-    cam = o + d * 1e-3
-    o_t = culling.to_tiles(cam, h, w, pad_value=pi.BIG)
-    d_t = culling.to_tiles(d, h, w, pad_value=0.0)
-    rays0, _, _ = pi.pack_rays(o_t, d_t)
+    rays0, _ = trav.tiled_rows(o + d * trav.RAY_EPS, d)
     words0 = pi.cluster_masks_rows(aabb8, rays0, n_super)
-
-    t, idx = trav.cast_rays(scene, o, d, intersector="pallas")
-    uni = prng.uniforms(key, 0, 0, sids, 6)
-    alive = torch.ones((h, w), dtype=torch.bool, device=dev)
-    ones = torch.ones((h, w, 3), device=dev)
-    o1, d1, _, _, alive1 = integ._shade_vertex(
-        scene, o, d, t, idx, alive, uni, scene.num_lights > 0, ones,
-        0 * ones)
-    n0 = h * w
-    n0p = -(-n0 // pi.RB) * pi.RB
-    o1 = o1.reshape(n0, 3)
-    d1 = d1.reshape(n0, 3)
-    alive1 = alive1.reshape(n0)
-    n_alive = int(alive1.sum())
-    # auto_lane_schedule's budget for bounce 1 of this very sample
-    s_width = min(n0p, -(-(int(n_alive * 1.04) + 2 * pi.RB) // pi.RB)
-                  * pi.RB)
-    far_o = torch.tensor([pi.BIG, 0.0, 0.0], device=dev)
-    unit_x = torch.tensor([1.0, 0.0, 0.0], device=dev)
-    oc = torch.zeros((n0p, 3), device=dev)
-    dc = torch.zeros((n0p, 3), device=dev)
-    al = torch.zeros(n0p, dtype=torch.bool, device=dev)
-    oc[:n0], dc[:n0], al[:n0] = o1, d1, alive1
-    oc = torch.where(al[:, None], oc, far_o)
-    dc = torch.where(al[:, None], dc, unit_x)
-    pre = torch.zeros((8, n0p), device=dev)
-    pre[0:3] = (oc + dc * 1e-3).T
-    pre[3:6] = dc.T
-    wp = pi.cluster_masks_rows(aabb8, pre, n_super)
-    keys, slots = trav._lex_sort_keys(al, trav._ray_octant(dc),
-                                      [wp[i] for i in range(wp.shape[0])],
-                                      n_super)
-    perm = trav.lex_sort_perm(keys)[:s_width]
-    words1 = torch.stack([keys[i][perm] for i in slots], dim=0)
-    rays1 = torch.zeros((8, s_width), device=dev)
-    rays1[0:3] = (oc[perm] + dc[perm] * 1e-3).T
-    rays1[3:6] = dc[perm].T
-    return (rays0, words0, rays1.contiguous(), words1.contiguous(),
-            aabb8, n_super, n_alive)
+    state, alive = integ.first_bounce(scene, o, d, key, 0)
+    n_alive = int(alive.sum())
+    _, _, rays1, words1 = integ.sort_lanes(state, alive, aabb8, n_super,
+                                           budget)
+    return rays0, words0, rays1, words1, aabb8, n_super, n_alive
 
 
 def profile_step(rt, stats, scene, cfg, fov_x, schedule, dev):
@@ -332,7 +285,7 @@ def main(argv=None) -> int:
     from raytracer_odin_tpu_torch.config import RenderConfig
     from raytracer_odin_tpu_torch.io import gltf, native
     from raytracer_odin_tpu_torch.models import assets, build
-    from raytracer_odin_tpu_torch.ops import culling, cuda_build
+    from raytracer_odin_tpu_torch.ops import cuda_build
     from raytracer_odin_tpu_torch.ops import integrator as integ
     from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
     from raytracer_odin_tpu_torch.ops import traverse as trav
@@ -353,18 +306,13 @@ def main(argv=None) -> int:
 
     # 2. build: nvcc and g++ start together
     s = time.perf_counter()
-    host_lib = {}
-    host_build = threading.Thread(target=lambda: host_lib.update(
-        lib=native.load()))
-    host_build.start()
-    report = "skipped (no nvcc in a CPU rehearsal)"
-    if not args.cpu_rehearsal:
-        report = cuda_build.build()
-        cuda_build.load()
-    host_build.join()
-    if host_lib.get("lib") is None:
-        raise RuntimeError("the host library (csrc/rtnative.cpp) did not "
-                           "build")
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host_build = pool.submit(native.load)
+        report = "skipped (no nvcc in a CPU rehearsal)"
+        if not args.cpu_rehearsal:
+            report = cuda_build.build()
+            cuda_build.load()
+        host_build.result()  # raises if g++ failed
     print(report.strip(), flush=True)
     ph.done("build", s)
 
@@ -378,14 +326,18 @@ def main(argv=None) -> int:
     ph.done("scene", s, f"{scene.num_triangles} triangles, "
             f"{scene.cluster_lo.shape[0]} clusters, {scene.num_lights} lights")
 
+    cfg = RenderConfig(width=w, height=h, ray_depth=DEPTH, samples=steps,
+                       samples_per_step=1, seed=0,
+                       intersector="pallas", compact="auto")
+
     # 4. kernel checks at the main path's shapes
     s = time.perf_counter()
-    rays0, words0, rays1, words1, aabb8, n_super, n_alive1 = bounce1_batch(
-        rt, integ, trav, prng, pi, scene, fov_x, w, h, dev)
+    rays0, words0, rays1, words1, aabb8, n_super, n_alive1 = kernel_batches(
+        rt, integ, trav, prng, pi, scene, cfg, fov_x, dev)
     k1_b0 = measure_k1(pi, aabb8, rays0, n_super, dev, reps)
     k1_b1 = measure_k1(pi, aabb8, rays1, n_super, dev, reps)
-    k2_b0 = measure_k2(pi, culling, scene, words0, rays0, n_super, dev, reps)
-    k2_b1 = measure_k2(pi, culling, scene, words1, rays1, n_super, dev, reps)
+    k2_b0 = measure_k2(pi, trav, scene, words0, rays0, n_super, dev, reps)
+    k2_b1 = measure_k2(pi, trav, scene, words1, rays1, n_super, dev, reps)
     for name, m in (("K1 bounce 0", k1_b0), ("K1 bounce 1", k1_b1),
                     ("K2 bounce 0", k2_b0), ("K2 bounce 1", k2_b1)):
         print(f"  {name}: {json.dumps(m)}", flush=True)
@@ -396,23 +348,30 @@ def main(argv=None) -> int:
 
     # 5. render: the main path, launches counted from zero
     s = time.perf_counter()
-    cfg = RenderConfig(width=w, height=h, ray_depth=DEPTH, samples=steps,
-                       samples_per_step=1, seed=0,
-                       intersector="pallas", compact="auto")
-    pi.cluster_masks_rows.launches = 0
-    pi.intersect_culled_rows.launches = 0
+    wrappers = {"K1": pi.cluster_masks_rows, "K2": pi.intersect_culled_rows}
+    for fn in wrappers.values():
+        fn.launches = 0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     step_end = []
+    # the launch counts after each step: calibration plus steps so far
+    step_counts = []
 
     def on_step(_stats, _done):
         sync(dev)
         step_end.append(time.perf_counter())
+        step_counts.append({k: fn.launches for k, fn in wrappers.items()})
 
     t_cal = time.perf_counter()
     res = rt.render_scene(scene, cfg, fov_x, device=dev, on_step=on_step)
-    launches = {"K1": pi.cluster_masks_rows.launches,
-                "K2": pi.intersect_culled_rows.launches}
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    # launches of each step (differences between steps) and of calibration
+    # (the count after step 1 less one step's launches)
+    per_step = {k: sorted({b[k] - a[k]
+                           for a, b in zip(step_counts, step_counts[1:])})
+                for k in wrappers}
+    calibration = {k: step_counts[0][k] - (per_step[k] or [0])[0]
+                   for k in wrappers}
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
     render_s = res.seconds
@@ -428,14 +387,20 @@ def main(argv=None) -> int:
           flush=True)
     print(f"  Mrays/s {mrays:.3f} over the {steps} steps "
           f"({card}); peak device memory {peak / 2**30:.3f} GiB", flush=True)
-    print(f"  launches {launches} (want {8 * (steps + 1)} each: 8 per step "
-          "and 8 in calibration)", flush=True)
-    if res.overflow != 0:
-        raise AssertionError(f"compaction overflow {res.overflow}")
+    print(f"  launches {launches}; per step {per_step}; in calibration "
+          f"{calibration} (want {DEPTH} per step and {DEPTH} in "
+          "calibration)", flush=True)
+    if res.overflow != 0 or res.lane_schedule is None:
+        raise AssertionError(f"compaction overflow {res.overflow}: the "
+                             "render fell back to uncompacted")
+    if len(step_counts) != steps:
+        raise AssertionError(f"{len(step_counts)} steps ran, not {steps}")
     if not args.cpu_rehearsal:
-        for k, v in launches.items():
-            if v != 8 * (steps + 1):
-                raise AssertionError(f"{k} launched {v} times")
+        for k in wrappers:
+            if per_step[k] != [DEPTH] or calibration[k] != DEPTH:
+                raise AssertionError(
+                    f"{k} launched {per_step[k]} times per step and "
+                    f"{calibration[k]} in calibration")
     ph.done("render", s, f"{mrays:.3f} Mrays/s")
 
     # 6. what came out is right
@@ -489,7 +454,8 @@ def main(argv=None) -> int:
             "source": "raytracer_odin_tpu_torch/csrc/intersect_kernels.cu",
             "replaces": replaces,
             "launches": launches[key],
-            "launches_per_step": 8,
+            "launches_per_step": per_step[key][0],
+            "launches_in_calibration": calibration[key],
             # main entries: the sorted, compacted bounce-1 batch (7 of a
             # step's 8 launches are sorted batches); bounce0: the camera rays
             "max_abs_err": b1["max_abs_err"], "ms": b1["ms"],

@@ -62,36 +62,8 @@ def decode_image(data: bytes) -> LoadedImage:
             if img.ndim == 2:
                 img = img[..., None]
         return LoadedImage(img.astype(np.float32) / 255.0, False)
-    if data[:2] in (b"P6", b"P5", b"P3"):
-        return LoadedImage(decode_ppm(data), False)
     raise ValueError("unrecognized image format")
 
 
 def load_image(path) -> LoadedImage:
     return decode_image(Path(path).read_bytes())
-
-
-def decode_ppm(data: bytes) -> np.ndarray:
-    """Decode binary/ascii PPM/PGM -> float32 [H, W, C]. Used by tests to read
-    back our own PPM output (output.odin:88-94 writes P6)."""
-    fields: list[bytes] = []
-    pos = 0
-    while len(fields) < 4:
-        # Skip whitespace and comments.
-        while pos < len(data) and data[pos : pos + 1].isspace():
-            pos += 1
-        if data[pos : pos + 1] == b"#":
-            pos = data.index(b"\n", pos) + 1
-            continue
-        start = pos
-        while pos < len(data) and not data[pos : pos + 1].isspace():
-            pos += 1
-        fields.append(data[start:pos])
-    magic, w, h, maxval = fields[0], int(fields[1]), int(fields[2]), int(fields[3])
-    pos += 1  # single whitespace after maxval
-    nch = 3 if magic in (b"P6", b"P3") else 1
-    if magic in (b"P6", b"P5"):
-        raw = np.frombuffer(data, np.uint8, count=w * h * nch, offset=pos)
-    else:
-        raw = np.array(data[pos:].split(), np.uint16)[: w * h * nch]
-    return raw.reshape(h, w, nch).astype(np.float32) / float(maxval)

@@ -1,10 +1,9 @@
 """ctypes loader for the port's native host runtime (csrc/rtnative.cpp).
 
 Compiles the shared library with g++ on first use into the gitignored
-`raytracer_odin_tpu_torch/build/` directory. Returns None when no compiler
-is available: PNG row unfiltering then uses its Python fallback, and the
-BVH builder (ops/bvh.py) raises, because its numpy fallback in the JAX
-package gives a different triangle permutation.
+`raytracer_odin_tpu_torch/build/` directory, and raises if it cannot: PNG
+row unfiltering and the BVH builder (ops/bvh.py) have no other path, since
+the JAX package's numpy BVH fallback gives a different triangle permutation.
 """
 
 from __future__ import annotations
@@ -24,21 +23,20 @@ _SO = BUILD_DIR / "librtnative_torch.so"
 
 _lock = threading.Lock()
 _lib = None
-_tried = False
 
 
-def _compile() -> bool:
+def _compile() -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # A per-process temporary name: parallel test workers may build at once.
     tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}.tmp")
     cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", str(_SRC),
            "-o", str(tmp)]
     try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-    except (OSError, subprocess.SubprocessError):
-        return False
+        subprocess.run(cmd, check=True, capture_output=True, text=True,
+                       timeout=120)
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(f"g++ could not build {_SRC}:\n{e.stderr}") from e
     tmp.replace(_SO)
-    return True
 
 
 class _NativeLib:
@@ -93,18 +91,13 @@ class _NativeLib:
         )
 
 
-def load():
-    """Return the native lib wrapper, or None if it cannot be built."""
-    global _lib, _tried
+def load() -> _NativeLib:
+    """Return the native lib wrapper, building it first if needed."""
+    global _lib
     with _lock:
-        if _tried:
-            return _lib
-        _tried = True
-        if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
-            if not _compile():
-                return None
-        try:
+        if _lib is None:
+            if (not _SO.exists()
+                    or _SO.stat().st_mtime < _SRC.stat().st_mtime):
+                _compile()
             _lib = _NativeLib(ctypes.CDLL(str(_SO)))
-        except OSError:
-            _lib = None
         return _lib

@@ -52,13 +52,7 @@ def build_flat_bvh(tri_lo: np.ndarray, tri_hi: np.ndarray,
         )
     from raytracer_odin_tpu_torch.io import native
 
-    lib = native.load()
-    if lib is None:
-        raise RuntimeError(
-            "the native BVH builder (csrc/rtnative.cpp) could not be built; "
-            "it needs g++"
-        )
-    perm, lo, hi, first, count, links, _ = lib.bvh_build(
+    perm, lo, hi, first, count, links, _ = native.load().bvh_build(
         np.asarray(tri_lo, np.float32), np.asarray(tri_hi, np.float32),
         leaf_size,
     )

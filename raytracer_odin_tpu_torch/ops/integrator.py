@@ -261,6 +261,82 @@ def trace(scene, o, d, key, sample, opts: TraceOptions):
     return radiance, aux
 
 
+def first_bounce(scene, o, d, key, sample):
+    """Bounce 0 of the compacted wavefront: the tiled full-width cast of the
+    camera rays o, d [..., 3] and their shading, flattened into the lane
+    state [Npad, 12] (o, d, throughput, radiance; Npad is the lane count
+    rounded up to RB) with its alive mask [Npad]. Padding lanes are dead;
+    a lane's stream id is its flat image position."""
+    has_lights = scene.light_p.shape[0] > 0
+    batch_shape = tuple(o.shape[:-1])
+    dev = o.device
+    n0 = 1
+    for s in batch_shape:
+        n0 *= s
+    n0p = -(-n0 // pi.RB) * pi.RB
+    t, tri_idx = traverse.cast_rays(
+        scene, o, d, intersector="pallas", sort=False
+    )
+    stream_ids = torch.arange(n0, dtype=torch.int32,
+                              device=dev).reshape(batch_shape)
+    uniforms = prng.uniforms(key, sample, 0, stream_ids, 6)
+    alive = torch.ones(batch_shape, dtype=torch.bool, device=dev)
+    throughput = torch.ones(batch_shape + (3,), dtype=torch.float32,
+                            device=dev)
+    radiance = torch.zeros(batch_shape + (3,), dtype=torch.float32,
+                           device=dev)
+    o, d, throughput, radiance, alive = _shade_vertex(
+        scene, o, d, t, tri_idx, alive, uniforms, has_lights,
+        throughput, radiance,
+    )
+    state = torch.zeros((n0p, 12), dtype=torch.float32, device=dev)
+    state[:n0, 0:3] = o.reshape(n0, 3)
+    state[:n0, 3:6] = d.reshape(n0, 3)
+    state[:n0, 6:9] = throughput.reshape(n0, 3)
+    state[:n0, 9:12] = radiance.reshape(n0, 3)
+    alive = torch.cat([alive.reshape(n0),
+                       torch.zeros(n0p - n0, dtype=torch.bool, device=dev)])
+    return state, alive
+
+
+def sort_lanes(state, alive, aabb8, n_super: int, budget: int):
+    """The front half of one compacted bounce: dead lanes become degenerate
+    far rays (empty masks; their o, d in `state` are overwritten in place),
+    K1 masks every lane, and the lanes are sorted by (dead|octant, mask
+    words), so the alive lanes form a prefix. The bounce's batch is the
+    first `budget` lanes, rounded down to RB and kept within [RB, N].
+
+    Returns (the sorted state [N, 12], perm [N] source lane of each sorted
+    lane, the batch's RAY_EPS-offset kernel rows [8, s_width] and their
+    mask words [W, s_width])."""
+    dev = state.device
+    rb = pi.RB
+    width = state.shape[0]
+    far_o = torch.tensor([BIG, 0.0, 0.0], dtype=torch.float32, device=dev)
+    unit_x = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float32, device=dev)
+    state[:, 0:3] = torch.where(alive[:, None], state[:, 0:3], far_o)
+    state[:, 3:6] = torch.where(alive[:, None], state[:, 3:6], unit_x)
+    s_width = max(rb, min(width, (int(budget) // rb) * rb))
+
+    oc, dc = state[:, 0:3], state[:, 3:6]
+    rays_pre = torch.zeros((8, width), dtype=torch.float32, device=dev)
+    rays_pre[0:3] = (oc + dc * RAY_EPS).T
+    rays_pre[3:6] = dc.T
+    words_p = pi.cluster_masks_rows(aabb8, rays_pre, n_super)
+    keys, word_slots = traverse._lex_sort_keys(
+        alive, traverse._ray_octant(dc),
+        [words_p[i] for i in range(words_p.shape[0])], n_super,
+    )
+    perm = traverse.lex_sort_perm(keys)
+    state = state[perm]
+    words = torch.stack([keys[i][perm[:s_width]] for i in word_slots], dim=0)
+    so, sd = state[:s_width, 0:3], state[:s_width, 3:6]
+    rays = torch.zeros((8, s_width), dtype=torch.float32, device=dev)
+    rays[0:3] = (so + sd * RAY_EPS).T
+    rays[3:6] = sd.T
+    return state, perm, rays, words
+
+
 def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions):
     """Dead-lane-compacted wavefront (TraceOptions.lane_schedule).
 
@@ -277,104 +353,54 @@ def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions):
     has_lights = scene.light_p.shape[0] > 0
     batch_shape = tuple(o.shape[:-1])
     dev = o.device
+    schedule = opts.lane_schedule
+
     n0 = 1
     for s in batch_shape:
         n0 *= s
-    rb = pi.RB
-    n0p = -(-n0 // rb) * rb
-    schedule = opts.lane_schedule
 
     # ---- bounce 0: full width, image order ----
+    state, alive = first_bounce(scene, o, d, key, sample)
+    n0p = state.shape[0]
     rays = torch.tensor(n0, dtype=torch.int64, device=dev)
     alive_counts = [rays]
-    t, tri_idx = traverse.cast_rays(
-        scene, o, d, intersector="pallas", sort=False
-    )
     # A lane's stream id is its flat image position, which is also the lane
-    # id it carries through the sorts.
+    # id it carries through the sorts; padding lanes carry ids >= n0, which
+    # the merge drops.
     iota = torch.arange(n0p, dtype=torch.int32, device=dev)
-    uniforms = prng.uniforms(key, sample, 0, iota[:n0].reshape(batch_shape),
-                             6)
-    alive = torch.ones(batch_shape, dtype=torch.bool, device=dev)
-    throughput = torch.ones(batch_shape + (3,), dtype=torch.float32,
-                            device=dev)
-    radiance = torch.zeros(batch_shape + (3,), dtype=torch.float32,
-                           device=dev)
-    o, d, throughput, radiance, alive = _shade_vertex(
-        scene, o, d, t, tri_idx, alive, uniforms, has_lights,
-        throughput, radiance,
-    )
-
-    # Flatten and pad once to an RB multiple: padding lanes are dead and
-    # carry lane ids >= n0, which the merge drops.
-    pad = n0p - n0
-    state = torch.zeros((n0p, 12), dtype=torch.float32, device=dev)
-    state[:n0, 0:3] = o.reshape(n0, 3)
-    state[:n0, 3:6] = d.reshape(n0, 3)
-    state[:n0, 6:9] = throughput.reshape(n0, 3)
-    state[:n0, 9:12] = radiance.reshape(n0, 3)
-    alive = torch.cat([alive.reshape(n0),
-                       torch.zeros(pad, dtype=torch.bool, device=dev)])
-
     _g, n_super, aabb8 = traverse.exact_cull_layout(scene)
-    far_o = torch.tensor([BIG, 0.0, 0.0], dtype=torch.float32, device=dev)
-    unit_x = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float32, device=dev)
 
     retired_iota = []
     retired_rad = []
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
-    width = n0p
     for b in range(1, opts.depth):
-        # Dead lanes become degenerate far rays: empty masks, dead-last sort.
-        state[:, 0:3] = torch.where(alive[:, None], state[:, 0:3], far_o)
-        state[:, 3:6] = torch.where(alive[:, None], state[:, 3:6], unit_x)
-        s_width = schedule[b - 1] if b - 1 < len(schedule) else schedule[-1]
-        s_width = max(rb, min(width, (int(s_width) // rb) * rb))
-
-        oc, dc = state[:, 0:3], state[:, 3:6]
-        rays_pre = torch.zeros((8, width), dtype=torch.float32, device=dev)
-        rays_pre[0:3] = (oc + dc * RAY_EPS).T
-        rays_pre[3:6] = dc.T
-        words_p = pi.cluster_masks_rows(aabb8, rays_pre, n_super)
-        keys, word_slots = traverse._lex_sort_keys(
-            alive, traverse._ray_octant(dc),
-            [words_p[i] for i in range(words_p.shape[0])], n_super,
-        )
-        perm = traverse.lex_sort_perm(keys)
-
+        budget = schedule[b - 1] if b - 1 < len(schedule) else schedule[-1]
         n_alive = alive.sum()
+        state, perm, rays_sorted, s_words = sort_lanes(
+            state, alive, aabb8, n_super, budget
+        )
+        s_width = rays_sorted.shape[1]
         alive_counts.append(n_alive)
         overflow = overflow + torch.clamp(n_alive - s_width, min=0)
 
-        state = state[perm]
         iota = iota[perm]
         # The tail is dead (or overflow, which poisons the render): its
         # radiance is final.
         retired_iota.append(iota[s_width:])
         retired_rad.append(state[s_width:, 9:12])
-
-        s_words = torch.stack(
-            [keys[i][perm[:s_width]] for i in word_slots], dim=0
-        )
         state = state[:s_width].contiguous()
         iota = iota[:s_width]
         alive = torch.arange(s_width, device=dev) < n_alive
-        width = s_width
         # Alive lanes are a sorted prefix: min(n_alive, s_width) are cast.
         rays = rays + torch.clamp(n_alive, max=s_width)
 
-        so, sd = state[:, 0:3], state[:, 3:6]
-        rays_sorted = torch.zeros((8, s_width), dtype=torch.float32,
-                                  device=dev)
-        rays_sorted[0:3] = (so + sd * RAY_EPS).T
-        rays_sorted[3:6] = sd.T
         t, tri_idx = traverse.cast_presorted_rows(
             scene, rays_sorted, words=s_words
         )
         uniforms = prng.uniforms(key, sample, b, iota, 6)
         o2, d2, thr, rad, alive = _shade_vertex(
-            scene, so, sd, t, tri_idx, alive, uniforms, has_lights,
-            state[:, 6:9], state[:, 9:12],
+            scene, state[:, 0:3], state[:, 3:6], t, tri_idx, alive, uniforms,
+            has_lights, state[:, 6:9], state[:, 9:12],
         )
         state = torch.cat([o2, d2, thr, rad], dim=1)
 

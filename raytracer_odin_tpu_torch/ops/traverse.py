@@ -111,11 +111,28 @@ def _sweep_exact(scene, words_packed, rays, g: int, n_super: int,
     whole list."""
     if g != 1:
         raise NotImplementedError("two-level sweep (g > 1) is not ported yet")
+    counts, lists = exact_lists(words_packed, n_super, cap)
+    return pi.intersect_culled_rows(scene.ptri, counts, lists, rays)
+
+
+def exact_lists(words_packed, n_super: int, cap: int = 256):
+    """(counts [Nsub], lists [Nsub, <= cap]) of one-level exact culling:
+    the OR of the [W, Npad] ray masks over each RB_SUB sub-block, as
+    ascending cluster ids (count -1 when a list would exceed cap)."""
     smask = culling.unpack_mask(
         culling.or_blocks_packed(words_packed, pi.RB_SUB), n_super
     )
-    counts, lists = culling.build_lists(smask, cap=cap)
-    return pi.intersect_culled_rows(scene.ptri, counts, lists, rays)
+    return culling.build_lists(smask, cap=cap)
+
+
+def tiled_rows(o, d):
+    """[H, W, 3] RAY_EPS-offset origins and directions -> ([8, Npad] kernel
+    rows in the (16 x 32) image-tile order, lane count). Padding lanes are
+    dead rays: far origins and null directions."""
+    h, w = o.shape[:2]
+    rays, _, n = pi.pack_rays(culling.to_tiles(o, h, w, pad_value=BIG),
+                              culling.to_tiles(d, h, w, pad_value=0.0))
+    return rays, n
 
 
 def cast_presorted_rows(scene, rays, words):
@@ -196,14 +213,9 @@ def cast_rays_pallas(scene, o, d, sort: bool = False, alive=None):
     else:
         tiled = len(batch_shape) == 2
         if tiled:
-            h, w = batch_shape
-            # padding lanes: far origins + null directions = dead rays
-            o2 = culling.to_tiles(o, h, w, pad_value=BIG)
-            d2 = culling.to_tiles(d, h, w, pad_value=0.0)
+            rays2, n = tiled_rows(o, d)
         else:
-            o2 = o.reshape(-1, 3)
-            d2 = d.reshape(-1, 3)
-        rays2, _, n = pi.pack_rays(o2, d2)
+            rays2, _, n = pi.pack_rays(o.reshape(-1, 3), d.reshape(-1, 3))
         words = pi.cluster_masks_rows(aabb8, rays2, n_super)
 
     out = _sweep_exact(scene, words, rays2, g, n_super)

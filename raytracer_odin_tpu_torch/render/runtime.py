@@ -74,19 +74,25 @@ def generate_rays(cam_pos, cam_basis, fov_x: float, width: int, height: int,
     return o, d
 
 
-def sample_pass(scene, key, sample, fov_x: float, width: int, height: int,
-                opts: TraceOptions):
-    """One full-image sample: jittered ray generation + wavefront trace,
-    with per-pixel counter-based streams (stream id = pixel index).
-    Returns (radiance [H, W, 3], aux)."""
+def camera_rays(scene, key, sample, fov_x: float, width: int, height: int):
+    """One full-image sample's jittered camera rays, with per-pixel
+    counter-based streams (stream id = pixel index). Returns (o, d)
+    [H, W, 3]."""
     dev = scene.device
     rows = torch.arange(height, dtype=torch.int32, device=dev)[:, None]
     cols = torch.arange(width, dtype=torch.int32, device=dev)[None, :]
     stream_ids = rows * width + cols
 
     jitter = prng.uniforms(key, sample, prng.JITTER_TAG, stream_ids, 2)
-    o, d = generate_rays(scene.cam_pos, scene.cam_basis, fov_x, width,
+    return generate_rays(scene.cam_pos, scene.cam_basis, fov_x, width,
                          height, jitter)
+
+
+def sample_pass(scene, key, sample, fov_x: float, width: int, height: int,
+                opts: TraceOptions):
+    """One full-image sample: jittered camera rays + wavefront trace.
+    Returns (radiance [H, W, 3], aux)."""
+    o, d = camera_rays(scene, key, sample, fov_x, width, height)
     return trace(scene, o, d, key, sample, opts)
 
 
@@ -157,9 +163,13 @@ class RenderResult:
     # Live path segments cast (the JAX package's accounting: dead lanes are
     # not credited).
     rays_cast: int = 0
+    # Live lanes that the compacted attempt's lane budgets cut off. Non-zero
+    # means that attempt was thrown away and `stats` is the uncompacted
+    # re-render (lane_schedule None).
     overflow: int = 0
     # Live lanes entering each bounce, summed over every sample rendered.
     alive_counts: tuple = ()
+    # The lane budgets the returned render used (None: uncompacted).
     lane_schedule: Optional[tuple] = None
 
 
@@ -169,9 +179,11 @@ def render_scene(scene, cfg: RenderConfig, fov_x: float, device="cuda",
     samples. on_step(stats, samples_done) runs after every step."""
     dev = _require_device(scene, device)
     lane_schedule = None
-    if (cfg.compact == "auto" and cfg.compact_schedule is None
-            and cfg.ray_depth > 1):
-        lane_schedule = auto_lane_schedule(scene, cfg, fov_x, device=device)
+    if cfg.ray_depth > 1:
+        lane_schedule = cfg.compact_schedule
+        if cfg.compact == "auto" and lane_schedule is None:
+            lane_schedule = auto_lane_schedule(scene, cfg, fov_x,
+                                               device=device)
     step = make_render_step(cfg, fov_x, lane_schedule=lane_schedule,
                             device=device)
     key = prng.key_from_seed(cfg.seed)
@@ -202,10 +214,11 @@ def render_scene(scene, cfg: RenderConfig, fov_x: float, device="cuda",
         # Re-render uncompacted, which is correct by construction.
         print(f"WARNING: lane-schedule overflow ({overflow} lanes); "
               "re-rendering uncompacted")
-        return render_scene(
+        redo = render_scene(
             scene, cfg.replace(compact="off", compact_schedule=None), fov_x,
             device=device, on_step=on_step,
         )
+        return dataclasses.replace(redo, overflow=int(overflow))
     return RenderResult(
         stats=stats,
         samples_done=samples_done,
@@ -213,5 +226,5 @@ def render_scene(scene, cfg: RenderConfig, fov_x: float, device="cuda",
         rays_cast=int(rays),
         overflow=int(overflow),
         alive_counts=tuple(int(c) for c in totals[2:]),
-        lane_schedule=lane_schedule,
+        lane_schedule=tuple(lane_schedule) if lane_schedule else None,
     )

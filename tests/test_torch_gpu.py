@@ -15,6 +15,7 @@ import torch
 
 from raytracer_odin_tpu_torch.ops import culling
 from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
+from raytracer_odin_tpu_torch.ops import traverse
 
 
 @pytest.fixture
@@ -111,9 +112,7 @@ def test_exact_lists_sweep_bit_equal(cuda):
     aabb[:nc, 0:3], aabb[:nc, 3:6] = lo, hi
     rays = _rays(rng, 32_768, tris).to(cuda)
     words = pi.cluster_masks_rows(torch.from_numpy(aabb).to(cuda), rays, nc)
-    counts, lists = culling.build_lists(
-        culling.unpack_mask(culling.or_blocks_packed(words, pi.RB_SUB), nc),
-        cap=256)
+    counts, lists = traverse.exact_lists(words, nc)
     got = pi.intersect_culled_rows(t, counts, lists, rays)
     want = pi._culled_plain(counts, lists, rays, t)
     torch.cuda.synchronize()

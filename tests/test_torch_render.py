@@ -156,7 +156,8 @@ def test_compacted_matches_full(name, w, h, depth, schedule, tmp_path):
 
 def test_overflow_detected_and_rerendered(tmp_path, capsys):
     """A schedule below the real alive counts is counted as overflow, and
-    render_scene then re-renders uncompacted (equal to compact="off")."""
+    render_scene then re-renders uncompacted (equal to compact="off"),
+    reporting the compacted attempt's overflow and no lane schedule."""
     host, sc = _load("cornell", tmp_path)
     fov = host.cam.fov_x
     _, a_full = _pass(sc, fov, 48, 48, 5, None)
@@ -171,7 +172,8 @@ def test_overflow_detected_and_rerendered(tmp_path, capsys):
     assert "re-rendering uncompacted" in capsys.readouterr().out
     ref = runtime.render_scene(sc, cfg.replace(compact_schedule=None), fov,
                                device="cpu")
-    assert res.overflow == 0 and res.rays_cast == ref.rays_cast
+    assert res.overflow >= expect and res.lane_schedule is None
+    assert ref.overflow == 0 and res.rays_cast == ref.rays_cast
     assert torch.equal(res.stats.total, ref.stats.total)
 
 
