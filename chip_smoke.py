@@ -1,25 +1,47 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (raytracer_odin_tpu_torch).
 
-Drives the port's main path on one NVIDIA GPU, one phase per line with its
+Drives the port's paths on one NVIDIA GPU, one phase per line with its
 wall time:
 
   1. card      name and power limit (nvidia-smi)
-  2. build     the CUDA kernels (nvcc, ptxas -v report) and the host lib
+  2. build     the CUDA kernels K1-K5 (nvcc, ptxas -v report) and the host
+               lib
   3. scene     the demo scene through the port's own assets, glTF reader
                and finish_scene(device="cuda")
   4. kernels   K1 (mask) and K2 (sweep) against their plain PyTorch
                versions, bit for bit, on the bounce-0 camera rays of the
                full frame and on the sorted, compacted bounce-1 batch of the
                calibration sample; CUDA-event times and bounds
-  5. render    render_scene at 1920x1080, depth 8, 1 spp per step,
-               intersector="pallas", compact="auto": calibration plus the
-               timed steps; Mrays/s over live path segments, per-bounce
-               alive counts, overflow (must be 0), peak memory, and the
-               launch counts of K1 and K2 (8 per step and 8 in calibration)
+  5. render    the main path: render_scene on the demo at 1920x1080, depth
+               8, 1 spp per step, intersector="pallas", compact="auto":
+               calibration plus the timed steps; Mrays/s over live path
+               segments, per-bounce alive counts, overflow (must be 0), peak
+               memory, and the launch counts of every kernel (K1 and K2 8 per
+               step and 8 in calibration, K3-K5 none)
   6. check     the render is finite and of the frame's shape, and the
                golden images of tests/golden/ reproduce on the card
-  7. the kernels JSON line, then the {"ok": true, ...} line.
+  7. the paths of the second slice, each at 1920x1080, depth 8, seed 0,
+     with its kernel checks, calibration and PATH_STEPS timed steps, the
+     launch counts read at every step, overflow 0, peak memory:
+       citynight  1,728 lights: K1, K2 and K5 (light-cluster pdf; checked
+                  on the bounce-0 shading batch, and against the dense sum
+                  on a slice)
+       city       811 clusters, two-level layout (g = 4): K1 and K2 over
+                  chunk-major lists
+       city24     city with blocks=24, 207,234 triangles, streamed: K1 and
+                  K4 (streamed sweep; blocks that overflow their lists are
+                  counted on every bounce of one more step)
+       brute      the demo with intersector="pallas_brute": K3 only,
+                  uncompacted; the cube golden image through K3
+  8. with --profile: one more step of each path under torch.profiler,
+     device time by kernel class and the device's busy share
+  9. the kernels JSON line (K1-K5), then the {"ok": true, ...} line.
+
+Plain versions that would take minutes at full frame are compared on a
+slice of the batch: the SLICE_BLOCKS 512-ray blocks in its middle (K3, and
+K2/K4 on the two-level scenes city and city24); the kernel is timed on the
+whole batch and on the slice.
 
 Any failure exits non-zero before the last line is printed. Run it from the
 repository root:
@@ -51,12 +73,21 @@ PEAK_HBM_BYTES = 3.35e12
 # fp32 operations per ray-box slab test (K1): per axis 2 sub, 2 mul, 1 min,
 # 1 max; near/far 2 max + 2 min; 2 compares.
 K1_OPS_PER_TEST = 24
-# fp32 operations per ray-triangle test (K2): d x v 9, det 5, 1/det 1,
-# o - p 3, bu 6, q 9, bv 6, t 6, inside 5, t > 0 and t < best 2, select 2.
+# fp32 operations per ray-triangle test (K2, K3, K4): d x v 9, det 5,
+# 1/det 1, o - p 3, bu 6, q 9, bv 6, t 6, inside 5, t > 0 and t < best 2,
+# select 2.
 K2_OPS_PER_TEST = 54
+# fp32 operations per ray-light test (K5): the same 45 up to t, 6 for the
+# hit test, 8 for t^2/|ng.d|, fac * w, the select, the NaN check and the
+# partial sum's add 4.
+K5_OPS_PER_TEST = 63
 # The demo frame of bench.py, and the timed steps after calibration.
 WIDTH, HEIGHT, DEPTH = 1920, 1080, 8
 STEPS = 5
+# Timed steps of each path of the second slice, and the 512-ray blocks of
+# the slice on which a slow plain version is compared.
+PATH_STEPS = 2
+SLICE_BLOCKS = 128
 GOLDEN = [("cube_16x16_d2_s4", "cube", 16, 16, 2, 4),
           ("cornell_32x32_d4_s4", "cornell", 32, 32, 4, 4)]
 
@@ -141,66 +172,291 @@ def measure_k1(pi, aabb8, rays, n_bits, dev, reps):
             "max_abs_err": float((got.long() - want.long()).abs().max())}
 
 
-def measure_k2(pi, trav, scene, words, rays, n_super, dev, reps):
-    """K2 on the exact lists of (words, rays): bit equality with the plain
-    version, times and the bound from this batch's list lengths."""
+def measure_sweep(pi, trav, scene, words, rays, g, n_super, dev, reps,
+                  slice_blocks=None):
+    """The list sweep of `scene` on the lists the main path builds for
+    (words, rays): K4 for a streamed scene, K2 otherwise. Bit equality with
+    the plain version (on the first `slice_blocks` 512-ray blocks when
+    given), times and the bound from this batch's list lengths."""
     import torch
 
-    counts, lists = trav.exact_lists(words, n_super)
+    counts, lists = trav.sweep_lists(scene, words, rays, g, n_super)
     tris = scene.ptri
-    got = pi.intersect_culled_rows(tris, counts, lists, rays)
-    want = pi._culled_plain(counts, lists, rays, tris)
+    block = pi.list_block(scene)
+    kernel = (pi.intersect_stream_rows if scene.stream
+              else pi.intersect_culled_rows)
+    got = kernel(tris, counts, lists, rays)
+    n = rays.shape[1]
+    a, b = slice_of(n, slice_blocks, pi.RB)
+    s_counts = counts[a // block:b // block].contiguous()
+    s_lists = lists[a // block:b // block].contiguous()
+    s_rays = rays[:, a:b].contiguous()
+    want = pi._culled_plain(s_counts, s_lists, s_rays, tris, block)
+    sync(dev)
+    if not torch.equal(got[:, a:b].view(torch.int32),
+                       want.view(torch.int32)):
+        raise AssertionError(
+            f"{'K4' if scene.stream else 'K2'} differs from its plain "
+            f"version in {int((got[:, a:b] != want).sum())} values")
+    n_clusters = tris.shape[0] // pi.LEAF
+    swept = int(torch.where(counts < 0, n_clusters, counts).sum())
+    ms = time_ms(lambda: kernel(tris, counts, lists, rays), dev, reps)
+    plain_ms = time_ms(
+        lambda: pi._culled_plain(s_counts, s_lists, s_rays, tris, block),
+        dev, 1)
+    nbytes = (6 * 4 * n + 8 * 4 * n + counts.numel() * 4 + lists.numel() * 4
+              + tris.numel() * 4)
+    tests = swept * pi.LEAF * block
+    b_ms, b_by = bound_ms(nbytes, K2_OPS_PER_TEST * tests)
+    out = {"rays": n, "hits": int((got[1] >= 0).sum()),
+           "ray_triangle_tests": tests, "list_rays": block,
+           "lists": counts.numel(),
+           "overflow_lists": int((counts < 0).sum()),
+           "mean_list": swept / counts.numel(), "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           # t is BIG on both sides of a miss
+           "max_abs_err": float((got[:2, a:b] - want[:2]).abs().max())}
+    if b - a < n:
+        out["plain_slice"] = [a, b]
+        out["slice_hits"] = int((want[1] >= 0).sum())
+        out["slice_ms"] = time_ms(
+            lambda: kernel(tris, s_counts, s_lists, s_rays), dev, reps)
+    return out
+
+
+def slice_of(n, blocks, rb):
+    """Lanes [a, b) of the `blocks` 512-ray blocks in the middle of an
+    n-lane batch (all of it when blocks is None or covers it): the middle
+    of a frame's tile order is the scene, its first rows sky."""
+    if blocks is None or blocks * rb >= n:
+        return 0, n
+    a = (n // rb - blocks) // 2 * rb
+    return a, a + blocks * rb
+
+
+def measure_k3(pi, scene, rays, dev, reps, slice_blocks):
+    """K3 on `rays`: bit equality with the plain version on the first
+    `slice_blocks` blocks, times and bound (every cluster for every ray)."""
+    import torch
+
+    tris = scene.ptri
+    got = pi.intersect_brute_rows(tris, rays)
+    a, b = slice_of(rays.shape[1], slice_blocks, pi.RB)
+    s_rays = rays[:, a:b].contiguous()
+    want = pi._brute_plain(s_rays, tris)
+    sync(dev)
+    if not torch.equal(got[:, a:b].view(torch.int32),
+                       want.view(torch.int32)):
+        raise AssertionError(
+            f"K3 differs from its plain version in "
+            f"{int((got[:, a:b] != want).sum())} values")
+    n = rays.shape[1]
+    ms = time_ms(lambda: pi.intersect_brute_rows(tris, rays), dev, reps)
+    slice_ms = time_ms(lambda: pi.intersect_brute_rows(tris, s_rays), dev,
+                       reps)
+    plain_ms = time_ms(lambda: pi._brute_plain(s_rays, tris), dev, 1)
+    tests = n * tris.shape[0]
+    b_ms, b_by = bound_ms(6 * 4 * n + 8 * 4 * n + tris.numel() * 4,
+                          K2_OPS_PER_TEST * tests)
+    return {"rays": n, "hits": int((got[1] >= 0).sum()),
+            "ray_triangle_tests": tests, "ms": ms, "slice_ms": slice_ms,
+            "plain_ms": plain_ms, "plain_slice": [a, b],
+            "slice_hits": int((want[1] >= 0).sum()),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": float((got[:2, a:b] - want[:2]).abs().max())}
+
+
+def measure_k5(lc, scene, o, d, dev, reps, slice_blocks):
+    """K5 on the light lists of shading points o and directions d [N, 3]:
+    bit equality with the plain version, times and bound from this batch's
+    lists; and the culled pdf against the dense sum (the reference
+    semantics) on the read lanes of slice_blocks / 2 blocks mid-batch."""
+    import torch
+
+    from raytracer_odin_tpu_torch.ops import shading
+
+    counts, lists, rays, n = lc.light_lists(scene, o, d)
+    lr = scene.light_rows
+    got = lc.light_sums_rows(lr, counts, lists, rays)
+    want = lc._light_sums_plain(counts, lists, rays, lr)
     sync(dev)
     if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
         raise AssertionError(
-            f"K2 differs from its plain version in "
+            f"K5 differs from its plain version in "
             f"{int((got != want).sum())} values")
-    n = rays.shape[1]
-    n_clusters = tris.shape[0] // pi.LEAF
+    ms = time_ms(lambda: lc.light_sums_rows(lr, counts, lists, rays), dev,
+                 reps)
+    plain_ms = time_ms(
+        lambda: lc._light_sums_plain(counts, lists, rays, lr), dev, 1)
+    n_clusters = lr.shape[0] // lc.LEAF_L
     swept = int(torch.where(counts < 0, n_clusters, counts).sum())
-    ms = time_ms(lambda: pi.intersect_culled_rows(tris, counts, lists, rays),
-                 dev, reps)
-    plain_ms = time_ms(lambda: pi._culled_plain(counts, lists, rays, tris),
-                       dev, 1)
-    nbytes = (6 * 4 * n + 8 * 4 * n + counts.numel() * 4 + lists.numel() * 4
-              + tris.numel() * 4)
-    tests = swept * pi.LEAF * pi.RB_SUB
-    b_ms, b_by = bound_ms(nbytes, K2_OPS_PER_TEST * tests)
-    hits = int((got[1] >= 0).sum())
-    finite = got[0][got[1] >= 0]
-    return {"rays": n, "hits": hits, "ray_triangle_tests": tests,
-            "mean_list": swept / counts.numel(), "ms": ms,
+    npad = rays.shape[1]
+    tests = swept * lc.LEAF_L * lc.pi.RB
+    nbytes = (6 * 4 * npad + 4 * npad + counts.numel() * 4
+              + lists.numel() * 4 + lr.numel() * 4)
+    b_ms, b_by = bound_ms(nbytes, K5_OPS_PER_TEST * tests)
+    # reference: the dense sum over every light, on the lanes whose sum is
+    # read (finite, not a missed ray's far point: light_lists' rule)
+    a, b = slice_of(n, slice_blocks // 2, lc.pi.RB)
+    so, sd = o[a:b], d[a:b]
+    culled = lc.light_pdf_sum_culled(scene, so, sd)
+    dense = shading.light_pdf_sum(scene, so, sd)
+    read = (torch.isfinite(so).all(-1) & torch.isfinite(sd).all(-1)
+            & (so.abs().amax(-1) < lc.FAR))
+    c, r = culled[read], dense[read]
+    if not bool((r > 0).any()):
+        raise AssertionError("the dense-sum check saw no lit lane")
+    fin = torch.isfinite(r)
+    if not (torch.equal(fin, torch.isfinite(c))
+            and torch.allclose(c[fin], r[fin], rtol=2e-4, atol=1e-6)):
+        raise AssertionError("culled light pdf differs from the dense sum")
+    return {"rays": n, "lists": counts.numel(),
+            "overflow_lists": int((counts < 0).sum()),
+            "mean_list": swept / counts.numel(), "ray_light_tests": tests,
+            "nonzero": int((got[:n] > 0).sum()), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err": float(max(
-                (got[1] - want[1]).abs().max(),
-                (finite - want[0][want[1] >= 0]).abs().max()
-                if finite.numel() else 0.0))}
+            "max_abs_err": float((got - want).abs().max()),
+            "dense_check_lanes": int(read.sum()),
+            "dense_check_nonzero": int((r > 0).sum())}
 
 
 def kernel_batches(rt, integ, trav, prng, pi, scene, cfg, fov_x, dev):
     """The kernels' inputs in the calibration sample of `cfg`, built by the
     main path's own functions: the bounce-0 camera rays in tile order with
-    their masks, and the sorted bounce-1 batch cut to the lane budget that
-    auto_lane_schedule gives it, with its masks. Returns (rays0, words0,
-    rays1, words1, aabb8, n_super, live lanes entering bounce 1)."""
+    their masks, the bounce-0 shading points and sampled directions (the
+    light pdf's inputs), and the sorted bounce-1 batch cut to the lane
+    budget that auto_lane_schedule gives it, with its masks."""
     budget = rt.auto_lane_schedule(scene, cfg, fov_x, device=dev)[0]
     key = prng.key_from_seed(cfg.seed)
     o, d = rt.camera_rays(scene, key, 0, fov_x, cfg.width, cfg.height)
-    _, n_super, aabb8 = trav.exact_cull_layout(scene)
+    g, n_super, aabb8 = trav.exact_cull_layout(scene)
     rays0, _ = trav.tiled_rows(o + d * trav.RAY_EPS, d)
     words0 = pi.cluster_masks_rows(aabb8, rays0, n_super)
     state, alive = integ.first_bounce(scene, o, d, key, 0)
+    n0 = cfg.width * cfg.height
+    shade_o = state[:n0, 0:3].clone()
+    shade_d = state[:n0, 3:6].clone()
     n_alive = int(alive.sum())
     _, _, rays1, words1 = integ.sort_lanes(state, alive, aabb8, n_super,
                                            budget)
-    return rays0, words0, rays1, words1, aabb8, n_super, n_alive
+    return {"rays0": rays0, "words0": words0, "rays1": rays1,
+            "words1": words1, "aabb8": aabb8, "g": g, "n_super": n_super,
+            "n_alive1": n_alive, "shade_o": shade_o, "shade_d": shade_d}
 
 
-def profile_step(rt, stats, scene, cfg, fov_x, schedule, dev):
-    """Two more compacted render steps into `stats`, the second under
-    torch.profiler: device time by kernel (top rows printed, the whole
-    table written next to the render) and the device's busy share of the
-    step's wall time."""
+def render_path(rt, scene, cfg, fov_x, dev, wrappers, steps):
+    """render_scene with every kernel's launch count set to 0 just before
+    and read after each step. Returns the result with the launches of each
+    step (differences between steps), of calibration (the count after step
+    1 less one step's), step times, Mrays/s and peak device memory."""
+    import torch
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    step_end = []
+    # the launch counts after each step: calibration plus steps so far
+    step_counts = []
+
+    def on_step(_stats, _done):
+        sync(dev)
+        step_end.append(time.perf_counter())
+        step_counts.append({k: fn.launches for k, fn in wrappers.items()})
+
+    t_cal = time.perf_counter()
+    res = rt.render_scene(scene, cfg, fov_x, device=dev, on_step=on_step)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    if len(step_counts) != steps:
+        raise AssertionError(f"{len(step_counts)} steps ran, not {steps}")
+    per_step = {k: sorted({b[k] - a[k]
+                           for a, b in zip(step_counts, step_counts[1:])})
+                for k in wrappers}
+    calibration = {k: step_counts[0][k] - (per_step[k] or [0])[0]
+                   for k in wrappers}
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else 0)
+    trial_start = step_end[-1] - res.seconds
+    step_s = [b - a for a, b in zip([trial_start] + step_end[:-1], step_end)]
+    return {"res": res, "launches": launches, "per_step": per_step,
+            "calibration": calibration, "calibration_s": trial_start - t_cal,
+            "step_s": step_s, "mrays": res.rays_cast / res.seconds / 1e6,
+            "peak_gib": peak / 2**30}
+
+
+def print_render(r, steps, card):
+    res = r["res"]
+    print(f"  schedule {res.lane_schedule}", flush=True)
+    print(f"  alive_counts (summed over {steps} samples) "
+          f"{list(res.alive_counts)}", flush=True)
+    print(f"  overflow {res.overflow}; rays_cast {res.rays_cast}; "
+          f"calibration {r['calibration_s']:.4f} s; {steps} steps in "
+          f"{res.seconds:.4f} s, each {[round(x, 4) for x in r['step_s']]}",
+          flush=True)
+    print(f"  Mrays/s {r['mrays']:.3f} over the {steps} steps "
+          f"({card}); peak device memory {r['peak_gib']:.3f} GiB",
+          flush=True)
+    print(f"  launches {r['launches']}; per step {r['per_step']}; in "
+          f"calibration {r['calibration']}", flush=True)
+
+
+def check_launches(name, r, want_step, want_cal, rehearsal):
+    """Each kernel launched exactly want_step[k] times in every step and
+    want_cal[k] times in calibration (0 for the kernels off the path)."""
+    if rehearsal:
+        return
+    for k in r["per_step"]:
+        step = r["per_step"][k] or [0]
+        if step != [want_step.get(k, 0)] or (
+                r["calibration"][k] != want_cal.get(k, 0)):
+            raise AssertionError(
+                f"{name}: {k} launched {r['per_step'][k]} times per step "
+                f"and {r['calibration'][k]} in calibration, want "
+                f"{want_step.get(k, 0)} and {want_cal.get(k, 0)}")
+
+
+def check_frame(res, h, w):
+    import torch
+
+    img = res.stats.total[0] / res.stats.count[0][..., None]
+    if tuple(img.shape) != (h, w, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError("render is not a finite frame of the right "
+                             "shape")
+    return float(img.mean())
+
+
+def sweep_census(trav, step, scene, stats, key, sample, dev):
+    """One more render step with traverse.sweep_lists recording the lists
+    it builds: per cast, the lists, the lists that overflow (count -1:
+    every cluster swept) and the mean list length. Kernel wrappers and
+    their counts are untouched."""
+    import torch
+
+    real = trav.sweep_lists
+    seen = []
+
+    def record(scene_, words, rays, g, n_super, cap=256):
+        counts, lists = real(scene_, words, rays, g, n_super, cap)
+        nc = scene_.cluster_lo.shape[0]
+        seen.append((counts.numel(), int((counts < 0).sum()),
+                     float(torch.where(counts < 0, nc,
+                                       counts).float().mean())))
+        return counts, lists
+
+    trav.sweep_lists = record
+    try:
+        step(scene, stats, key, sample)
+        sync(dev)
+    finally:
+        trav.sweep_lists = real
+    return seen
+
+
+def profile_step(rt, stats, scene, cfg, fov_x, schedule, dev, name):
+    """Two more render steps into `stats`, the second under torch.profiler:
+    device time by kernel (top rows printed, the whole table written next
+    to the render as profile_<name>.txt) and the device's busy share of
+    the step's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from raytracer_odin_tpu_torch.utils import prng
@@ -219,7 +475,7 @@ def profile_step(rt, stats, scene, cfg, fov_x, schedule, dev):
         sync(dev)
         wall = time.perf_counter() - t
     ka = prof.key_averages()
-    (OUT_DIR / "profile.txt").write_text(ka.table(
+    (OUT_DIR / f"profile_{name}.txt").write_text(ka.table(
         sort_by="self_device_time_total" if dev.type == "cuda"
         else "self_cpu_time_total", row_limit=60))
     from torch.autograd import DeviceType
@@ -232,6 +488,9 @@ def profile_step(rt, stats, scene, cfg, fov_x, schedule, dev):
         name = e.key.lower()
         b = ("K1 mask" if "mask_kernel" in name
              else "K2 sweep" if "culled_kernel" in name
+             else "K3 brute" if "brute_kernel" in name
+             else "K4 stream" if "stream_kernel" in name
+             else "K5 light" if "light_kernel" in name
              else "sort" if ("sort" in name or "radix" in name)
              else "gather/scatter" if ("index" in name or "gather" in name
                                        or "scatter" in name)
@@ -260,9 +519,9 @@ def main(argv=None) -> int:
                     help="run every phase on the CPU at a tiny size; never "
                          "prints the ok line")
     ap.add_argument("--profile", action="store_true",
-                    help="after the checks, trace one more render step with "
-                         "torch.profiler and print where its device time "
-                         "goes")
+                    help="after each path's checks, trace one more render "
+                         "step with torch.profiler and print where its "
+                         "device time goes")
     args = ap.parse_args(argv)
 
     try:
@@ -272,21 +531,25 @@ def main(argv=None) -> int:
     except ImportError as e:
         print(f"chip_smoke: cannot import the port: {e}", file=sys.stderr)
         return 2
-    if args.cpu_rehearsal:
+    rehearsal = args.cpu_rehearsal
+    if rehearsal:
         dev = torch.device("cpu")
-        w, h, steps, reps = 64, 36, 2, 2
+        w, h, steps, path_steps, reps = 64, 36, 2, 2, 2
+        slice_blocks = 2
     else:
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device", file=sys.stderr)
             return 1
         dev = torch.device("cuda", 0)
-        w, h, steps, reps = WIDTH, HEIGHT, STEPS, 20
+        w, h, steps, path_steps, reps = WIDTH, HEIGHT, STEPS, PATH_STEPS, 20
+        slice_blocks = SLICE_BLOCKS
 
     from raytracer_odin_tpu_torch.config import RenderConfig
     from raytracer_odin_tpu_torch.io import gltf, native
     from raytracer_odin_tpu_torch.models import assets, build
     from raytracer_odin_tpu_torch.ops import cuda_build
     from raytracer_odin_tpu_torch.ops import integrator as integ
+    from raytracer_odin_tpu_torch.ops import light_cull as lc
     from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
     from raytracer_odin_tpu_torch.ops import traverse as trav
     from raytracer_odin_tpu_torch.render import output
@@ -298,7 +561,7 @@ def main(argv=None) -> int:
 
     # 1. card
     s = time.perf_counter()
-    card = "cpu rehearsal" if args.cpu_rehearsal else card_line()
+    card = "cpu rehearsal" if rehearsal else card_line()
     print(card, flush=True)
     ph.done("card", s)
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
@@ -309,7 +572,7 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(max_workers=1) as pool:
         host_build = pool.submit(native.load)
         report = "skipped (no nvcc in a CPU rehearsal)"
-        if not args.cpu_rehearsal:
+        if not rehearsal:
             report = cuda_build.build()
             cuda_build.load()
         host_build.result()  # raises if g++ failed
@@ -332,147 +595,247 @@ def main(argv=None) -> int:
 
     # 4. kernel checks at the main path's shapes
     s = time.perf_counter()
-    rays0, words0, rays1, words1, aabb8, n_super, n_alive1 = kernel_batches(
-        rt, integ, trav, prng, pi, scene, cfg, fov_x, dev)
-    k1_b0 = measure_k1(pi, aabb8, rays0, n_super, dev, reps)
-    k1_b1 = measure_k1(pi, aabb8, rays1, n_super, dev, reps)
-    k2_b0 = measure_k2(pi, trav, scene, words0, rays0, n_super, dev, reps)
-    k2_b1 = measure_k2(pi, trav, scene, words1, rays1, n_super, dev, reps)
+    kb = kernel_batches(rt, integ, trav, prng, pi, scene, cfg, fov_x, dev)
+    rays0, rays1 = kb["rays0"], kb["rays1"]
+    k1_b0 = measure_k1(pi, kb["aabb8"], rays0, kb["n_super"], dev, reps)
+    k1_b1 = measure_k1(pi, kb["aabb8"], rays1, kb["n_super"], dev, reps)
+    k2_b0 = measure_sweep(pi, trav, scene, kb["words0"], rays0, kb["g"],
+                          kb["n_super"], dev, reps)
+    k2_b1 = measure_sweep(pi, trav, scene, kb["words1"], rays1, kb["g"],
+                          kb["n_super"], dev, reps)
     for name, m in (("K1 bounce 0", k1_b0), ("K1 bounce 1", k1_b1),
                     ("K2 bounce 0", k2_b0), ("K2 bounce 1", k2_b1)):
         print(f"  {name}: {json.dumps(m)}", flush=True)
-    if not args.cpu_rehearsal and rays1.shape[1] < 128 * 1024:
+    if not rehearsal and rays1.shape[1] < 128 * 1024:
         raise AssertionError(f"bounce-1 batch has {rays1.shape[1]} rays")
     ph.done("kernels", s, f"bit-equal; bounce-1 batch {rays1.shape[1]} rays "
-            f"({n_alive1} alive)")
+            f"({kb['n_alive1']} alive)")
 
     # 5. render: the main path, launches counted from zero
     s = time.perf_counter()
-    wrappers = {"K1": pi.cluster_masks_rows, "K2": pi.intersect_culled_rows}
-    for fn in wrappers.values():
-        fn.launches = 0
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    step_end = []
-    # the launch counts after each step: calibration plus steps so far
-    step_counts = []
-
-    def on_step(_stats, _done):
-        sync(dev)
-        step_end.append(time.perf_counter())
-        step_counts.append({k: fn.launches for k, fn in wrappers.items()})
-
-    t_cal = time.perf_counter()
-    res = rt.render_scene(scene, cfg, fov_x, device=dev, on_step=on_step)
-    launches = {k: fn.launches for k, fn in wrappers.items()}
-    # launches of each step (differences between steps) and of calibration
-    # (the count after step 1 less one step's launches)
-    per_step = {k: sorted({b[k] - a[k]
-                           for a, b in zip(step_counts, step_counts[1:])})
-                for k in wrappers}
-    calibration = {k: step_counts[0][k] - (per_step[k] or [0])[0]
-                   for k in wrappers}
-    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
-            else 0)
-    render_s = res.seconds
-    trial_start = step_end[-1] - render_s
-    step_s = [b - a for a, b in zip([trial_start] + step_end[:-1], step_end)]
-    mrays = res.rays_cast / render_s / 1e6
-    print(f"  schedule {res.lane_schedule}", flush=True)
-    print(f"  alive_counts (summed over {steps} samples) "
-          f"{list(res.alive_counts)}", flush=True)
-    print(f"  overflow {res.overflow}; rays_cast {res.rays_cast}; "
-          f"calibration {trial_start - t_cal:.4f} s; {steps} steps in "
-          f"{render_s:.4f} s, each {[round(x, 4) for x in step_s]}",
-          flush=True)
-    print(f"  Mrays/s {mrays:.3f} over the {steps} steps "
-          f"({card}); peak device memory {peak / 2**30:.3f} GiB", flush=True)
-    print(f"  launches {launches}; per step {per_step}; in calibration "
-          f"{calibration} (want {DEPTH} per step and {DEPTH} in "
-          "calibration)", flush=True)
+    wrappers = {"K1": pi.cluster_masks_rows, "K2": pi.intersect_culled_rows,
+                "K3": pi.intersect_brute_rows,
+                "K4": pi.intersect_stream_rows, "K5": lc.light_sums_rows}
+    demo = render_path(rt, scene, cfg, fov_x, dev, wrappers, steps)
+    res = demo["res"]
+    print_render(demo, steps, card)
     if res.overflow != 0 or res.lane_schedule is None:
         raise AssertionError(f"compaction overflow {res.overflow}: the "
                              "render fell back to uncompacted")
-    if len(step_counts) != steps:
-        raise AssertionError(f"{len(step_counts)} steps ran, not {steps}")
-    if not args.cpu_rehearsal:
-        for k in wrappers:
-            if per_step[k] != [DEPTH] or calibration[k] != DEPTH:
-                raise AssertionError(
-                    f"{k} launched {per_step[k]} times per step and "
-                    f"{calibration[k]} in calibration")
-    ph.done("render", s, f"{mrays:.3f} Mrays/s")
+    check_launches("demo", demo, {"K1": DEPTH, "K2": DEPTH},
+                   {"K1": DEPTH, "K2": DEPTH}, rehearsal)
+    ph.done("render", s, f"{demo['mrays']:.3f} Mrays/s")
 
     # 6. what came out is right
     s = time.perf_counter()
-    img = res.stats.total[0] / res.stats.count[0][..., None]
-    if tuple(img.shape) != (h, w, 3) or not bool(torch.isfinite(img).all()):
-        raise AssertionError("render is not a finite frame of the right "
-                             "shape")
+    check_frame(res, h, w)
     output.save_png(res.stats, OUT_DIR / "demo.png")
     worst = []
     for gname, sname, gw, gh, gd, gs in GOLDEN:
-        import numpy as np
-
-        ghost = gltf.read_gltf(assets.generate(sname, scene_dir)["gltf"])
-        gscene = build.finish_scene(ghost, device=dev)
-        gcfg = RenderConfig(width=gw, height=gh, ray_depth=gd, samples=gs,
-                            samples_per_step=gs, seed=0, intersector="pallas",
-                            compact="auto")
-        got = rt.render_scene(gscene, gcfg, ghost.cam.fov_x,
-                              device=dev).stats.total[0].cpu().numpy()
-        want = np.load(ROOT / "tests" / "golden" / f"{gname}.npy")
-        err = np.abs(got - want)
-        # The golden images come from the JAX package on the CPU. The
-        # card's sin/cos/pow/atan2 round differently, so the gate is
-        # 1e-3 relative per pixel, ten times the CPU test's.
-        ok = np.allclose(got, want, rtol=1e-3, atol=1e-4)
-        within = np.isclose(got, want, rtol=1e-4, atol=1e-5).mean()
-        worst.append(f"{gname} max abs {err.max():.3g} "
-                     f"(mean {err.mean():.3g}; {within:.4f} of values within "
-                     "the CPU test's rtol 1e-4, atol 1e-5)")
-        if not ok:
-            raise AssertionError(f"golden {gname} differs: {worst[-1]}")
+        worst.append(golden_check(rt, gltf, assets, build, RenderConfig,
+                                  scene_dir, dev, gname, sname, gw, gh, gd,
+                                  gs, "pallas"))
     ph.done("check", s, "finite demo frame; " + "; ".join(worst))
+
+    # 7. the paths of the second slice
+    city24 = Path(scene_dir) / "city24.gltf"
+    paths = {}
+    for name, intersector in (("citynight", "pallas"), ("city", "pallas"),
+                              ("city24", "pallas"),
+                              ("brute", "pallas_brute")):
+        s = time.perf_counter()
+        if name == "brute":
+            pscene, pfov = scene, fov_x
+        else:
+            if name == "city24":
+                assets.make_city_scene(city24, blocks=24)
+                phost = gltf.read_gltf(str(city24))
+            else:
+                phost = gltf.read_gltf(
+                    assets.generate(name, scene_dir)["gltf"])
+            pscene = build.finish_scene(phost, device=dev)
+            pfov = phost.cam.fov_x * (WIDTH / HEIGHT)
+        sync(dev)
+        g_, n_super_, _ = trav.exact_cull_layout(pscene)
+        info = {"triangles": pscene.num_triangles,
+                "clusters": pscene.cluster_lo.shape[0],
+                "lights": pscene.num_lights, "g": g_, "n_super": n_super_,
+                "streamed": pscene.stream}
+        pcfg = cfg.replace(samples=path_steps, intersector=intersector)
+        checks = {}
+        if name == "brute":
+            checks["K3 bounce 0"] = measure_k3(pi, pscene, rays0, dev, reps,
+                                               slice_blocks)
+        else:
+            pk = kernel_batches(rt, integ, trav, prng, pi, pscene, pcfg,
+                                pfov, dev)
+            slice_ = slice_blocks if g_ > 1 else None
+            checks["K1 bounce 1"] = measure_k1(pi, pk["aabb8"], pk["rays1"],
+                                               n_super_, dev, reps)
+            sweep = "K4" if pscene.stream else "K2"
+            for b in (0, 1):
+                checks[f"{sweep} bounce {b}"] = measure_sweep(
+                    pi, trav, pscene, pk[f"words{b}"], pk[f"rays{b}"], g_,
+                    n_super_, dev, reps, slice_)
+            if pscene.num_lights >= lc.LIGHT_CULL_MIN:
+                checks["K5 bounce 0"] = measure_k5(
+                    lc, pscene, pk["shade_o"], pk["shade_d"], dev, reps,
+                    slice_blocks)
+            del pk
+        for k, m in checks.items():
+            print(f"  [{name}] {k}: {json.dumps(m)}", flush=True)
+        r = render_path(rt, pscene, pcfg, pfov, dev, wrappers, path_steps)
+        print_render(r, path_steps, card)
+        pres = r["res"]
+        if pres.overflow != 0:
+            raise AssertionError(f"{name}: compaction overflow "
+                                 f"{pres.overflow}")
+        if intersector == "pallas":
+            if pres.lane_schedule is None:
+                raise AssertionError(f"{name}: no lane schedule")
+            sweep = "K4" if pscene.stream else "K2"
+            want = {"K1": DEPTH, sweep: DEPTH}
+            if pscene.num_lights >= lc.LIGHT_CULL_MIN:
+                want["K5"] = DEPTH
+            check_launches(name, r, want, want, rehearsal)
+        else:
+            if pres.lane_schedule is not None:
+                raise AssertionError("brute: compacted")
+            check_launches(name, r, {"K3": DEPTH}, {}, rehearsal)
+        mean = check_frame(pres, h, w)
+        output.save_png(pres.stats, OUT_DIR / f"{name}.png")
+        if pscene.stream:
+            step = rt.make_render_step(pcfg, pfov,
+                                       lane_schedule=pres.lane_schedule,
+                                       device=dev)
+            census = sweep_census(trav, step, pscene, pres.stats,
+                                  prng.key_from_seed(pcfg.seed),
+                                  path_steps, dev)
+            info["census"] = census
+            print(f"  [{name}] lists per cast (lists, overflowing, mean "
+                  f"length) over one more step: {census}", flush=True)
+        if args.profile:
+            ps = time.perf_counter()
+            profile_step(rt, pres.stats, pscene, pcfg, pfov,
+                         pres.lane_schedule, dev, name)
+            ph.done(f"profile {name}", ps)
+        if name == "brute":
+            info["golden"] = golden_check(
+                rt, gltf, assets, build, RenderConfig, scene_dir, dev,
+                *GOLDEN[0], "pallas_brute")
+        paths[name] = dict(info, checks=checks, mrays=r["mrays"],
+                           launches=r["launches"], per_step=r["per_step"],
+                           calibration=r["calibration"],
+                           peak_gib=r["peak_gib"], image_mean=mean)
+        del pscene
+        ph.done(f"path {name}", s, f"{r['mrays']:.3f} Mrays/s; "
+                + json.dumps(info))
 
     if args.profile:
         s = time.perf_counter()
         profile_step(rt, res.stats, scene, cfg, fov_x,
-                     res.lane_schedule, dev)
-        ph.done("profile", s)
+                     res.lane_schedule, dev, "demo")
+        ph.done("profile demo", s)
 
-    kernels = []
-    for name, replaces, b0, b1 in (
-        ("K1 cluster_masks_rows",
-         "raytracer_odin_tpu/ops/pallas_intersect.py:275", k1_b0, k1_b1),
-        ("K2 intersect_culled_rows",
-         "raytracer_odin_tpu/ops/pallas_intersect.py:162", k2_b0, k2_b1),
-    ):
-        key = name.split()[0]
-        kernels.append({
+    def entry(name, replaces, main, launches, extra):
+        return dict({
             "name": name, "route": "cuda",
             "source": "raytracer_odin_tpu_torch/csrc/intersect_kernels.cu",
-            "replaces": replaces,
-            "launches": launches[key],
-            "launches_per_step": per_step[key][0],
-            "launches_in_calibration": calibration[key],
-            # main entries: the sorted, compacted bounce-1 batch (7 of a
-            # step's 8 launches are sorted batches); bounce0: the camera rays
-            "max_abs_err": b1["max_abs_err"], "ms": b1["ms"],
-            "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"],
-            "bound_by": b1["bound_by"], "library_ms": None,
-            "rays": b1["rays"], "bounce0": b0,
-            "plain_is_yardstick": False,
-            "card": card,
-        })
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "plain_is_yardstick": False, "card": card}, **extra)
+
+    def by_path(k):
+        return {p: v["launches"][k] for p, v in paths.items()}
+
+    kernels = [
+        # main entries: the demo's sorted, compacted bounce-1 batch (7 of a
+        # step's 8 launches are sorted batches); bounce0: the camera rays
+        entry("K1 cluster_masks_rows",
+              "raytracer_odin_tpu/ops/pallas_intersect.py:275", k1_b1,
+              demo["launches"]["K1"],
+              {"launches_per_step": demo["per_step"]["K1"][0],
+               "launches_in_calibration": demo["calibration"]["K1"],
+               "rays": k1_b1["rays"], "bounce0": k1_b0,
+               "launches_by_path": by_path("K1"),
+               "city24_bounce1": paths["city24"]["checks"]["K1 bounce 1"]}),
+        entry("K2 intersect_culled_rows",
+              "raytracer_odin_tpu/ops/pallas_intersect.py:162", k2_b1,
+              demo["launches"]["K2"],
+              {"launches_per_step": demo["per_step"]["K2"][0],
+               "launches_in_calibration": demo["calibration"]["K2"],
+               "rays": k2_b1["rays"], "bounce0": k2_b0,
+               "launches_by_path": by_path("K2"),
+               "city_bounce1": paths["city"]["checks"]["K2 bounce 1"]}),
+        # K3: the brute path's bounce-0 camera rays (every bounce sweeps
+        # every cluster, uncompacted)
+        entry("K3 intersect_brute_rows",
+              "raytracer_odin_tpu/ops/pallas_intersect.py:140",
+              paths["brute"]["checks"]["K3 bounce 0"],
+              paths["brute"]["launches"]["K3"],
+              {"launches_per_step": paths["brute"]["per_step"]["K3"][0],
+               "launches_in_calibration":
+                   paths["brute"]["calibration"]["K3"]}),
+        # K4: city24's sorted, compacted bounce-1 batch
+        entry("K4 intersect_stream_rows",
+              "raytracer_odin_tpu/ops/pallas_intersect.py:217",
+              paths["city24"]["checks"]["K4 bounce 1"],
+              paths["city24"]["launches"]["K4"],
+              {"launches_per_step": paths["city24"]["per_step"]["K4"][0],
+               "launches_in_calibration":
+                   paths["city24"]["calibration"]["K4"],
+               "bounce0": paths["city24"]["checks"]["K4 bounce 0"]}),
+        # K5: citynight's bounce-0 shading batch (full frame)
+        entry("K5 light_sums_rows",
+              "raytracer_odin_tpu/ops/light_cull.py:103",
+              paths["citynight"]["checks"]["K5 bounce 0"],
+              paths["citynight"]["launches"]["K5"],
+              {"launches_per_step":
+                   paths["citynight"]["per_step"]["K5"][0],
+               "launches_in_calibration":
+                   paths["citynight"]["calibration"]["K5"]}),
+    ]
+    summary = {p: {k: v[k] for k in ("triangles", "clusters", "lights", "g",
+                                     "streamed", "mrays", "peak_gib")}
+               for p, v in paths.items()}
+    print(f"  paths {json.dumps(summary)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    if args.cpu_rehearsal:
+    if rehearsal:
         print("chip_smoke: CPU rehearsal finished (no result)", flush=True)
         return 3
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def golden_check(rt, gltf, assets, build, RenderConfig, scene_dir, dev,
+                 gname, sname, gw, gh, gd, gs, intersector):
+    """Render a golden configuration through `intersector` and compare it
+    with tests/golden/. The golden images come from the JAX package on the
+    CPU. The card's sin/cos/pow/atan2 round differently, so the gate is
+    1e-3 relative per pixel, ten times the CPU test's."""
+    import numpy as np
+
+    ghost = gltf.read_gltf(assets.generate(sname, scene_dir)["gltf"])
+    gscene = build.finish_scene(ghost, device=dev)
+    gcfg = RenderConfig(width=gw, height=gh, ray_depth=gd, samples=gs,
+                        samples_per_step=gs, seed=0, intersector=intersector,
+                        compact="auto")
+    got = rt.render_scene(gscene, gcfg, ghost.cam.fov_x,
+                          device=dev).stats.total[0].cpu().numpy()
+    want = np.load(ROOT / "tests" / "golden" / f"{gname}.npy")
+    err = np.abs(got - want)
+    ok = np.allclose(got, want, rtol=1e-3, atol=1e-4)
+    within = np.isclose(got, want, rtol=1e-4, atol=1e-5).mean()
+    line = (f"{gname} ({intersector}) max abs {err.max():.3g} (mean "
+            f"{err.mean():.3g}; {within:.4f} of values within the CPU "
+            "test's rtol 1e-4, atol 1e-5)")
+    if not ok:
+        raise AssertionError(f"golden {gname} differs: {line}")
+    return line
 
 
 if __name__ == "__main__":

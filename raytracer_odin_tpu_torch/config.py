@@ -4,8 +4,8 @@ Mirrors the reference's ``Rendering_Config`` (main.odin:27-32) plus the
 execution knobs the port honours, under the JAX package's field names and
 defaults. Fields of the JAX configuration that select paths the port does
 not have yet (debug AOV layers, continuous mode, the pool and refill
-schedulers, the brute and BVH intersectors, multi-device) come with those
-paths (ROADMAP.md).
+schedulers, the XLA "brute" and "bvh" intersectors, multi-device) come
+with those paths (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,7 +26,8 @@ class RenderConfig:
       samples_per_step: samples per pixel computed in one render step, the
         unit of accumulation between host checks.
       seed: the render's seed (prng.key_from_seed).
-      intersector: "pallas" (the exact-culled K1/K2 path) or "auto".
+      intersector: "pallas" (the exact-culled K1 + K2/K4 path), "auto"
+        (the same) or "pallas_brute" (K3, every cluster, uncompacted).
       compact: "auto" calibrates per-bounce lane budgets from a 1-spp
         measurement (runtime.auto_lane_schedule) and compacts dead lanes;
         "off" keeps full-width masked lanes.

@@ -13,6 +13,9 @@ Scenes:
   * demo           — config 5: the "meme scene" stand-in: a room full of
                      boxes/spheres with mixed materials, textures and lights
                      (a few thousand triangles)
+  * city           — a grid city of tessellated towers, two area lights
+                     (blocks=12: 51,858 triangles; blocks=24: 207,234)
+  * citynight      — the city with emissive windows (1,728 lights)
 """
 
 from __future__ import annotations
@@ -536,11 +539,121 @@ def _rot_y(a: float) -> np.ndarray:
     return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float64)
 
 
+def make_city_scene(path, blocks=12, seed=11) -> None:
+    """Scale-test scene: a grid city of tessellated towers + spheres
+    (~`blocks`^2 * ~700 triangles; blocks=12 -> ~100k) with two area lights.
+    Used to exercise the DMA-streamed intersector beyond VMEM residency."""
+    rng = np.random.default_rng(seed)
+    b = GltfBuilder()
+    ground = b.add_material(color=(0.45, 0.45, 0.47), roughness=0.9)
+    lights = [
+        b.add_material(emissive=(1, 0.95, 0.85), emissive_strength=25.0),
+        b.add_material(emissive=(0.7, 0.8, 1), emissive_strength=18.0),
+    ]
+    span = blocks * 3.0
+    p, n, uv, i = quad_mesh(
+        (-span, 0, -span), (span, 0, -span), (span, 0, span), (-span, 0, span)
+    )
+    b.add_node(mesh=b.add_mesh(p, i, n, uv, material=ground))
+    for k, x in enumerate((-span / 3, span / 3)):
+        p, n, uv, i = quad_mesh(
+            (x - 2, blocks * 1.8, 2), (x + 2, blocks * 1.8, 2),
+            (x + 2, blocks * 1.8, -2), (x - 2, blocks * 1.8, -2),
+        )
+        b.add_node(mesh=b.add_mesh(p, i, n, uv, material=lights[k]))
+    for gx in range(blocks):
+        for gz in range(blocks):
+            cx = (gx - blocks / 2 + 0.5) * 3.0
+            cz = (gz - blocks / 2 + 0.5) * 3.0
+            color = tuple(float(c) for c in rng.uniform(0.25, 0.9, 3))
+            m = b.add_material(
+                color=color,
+                metallic=float(rng.integers(0, 2)),
+                roughness=float(rng.uniform(0.1, 0.9)),
+            )
+            hgt = float(rng.uniform(1.0, 6.0))
+            # tessellated tower: stack of jittered boxes + a sphere cap
+            nseg = int(rng.integers(2, 5))
+            for s_ in range(nseg):
+                w = float(rng.uniform(0.6, 1.2)) * (1 - 0.15 * s_)
+                p, n, uv, i = box_mesh(
+                    (w, hgt / nseg, w),
+                    (cx, hgt / nseg * (s_ + 0.5), cz),
+                )
+                b.add_node(mesh=b.add_mesh(p, i, n, uv, material=m))
+            p, n, uv, i = uv_sphere(
+                0.45, (cx, hgt + 0.45, cz), n_lat=9, n_lon=18
+            )
+            b.add_node(mesh=b.add_mesh(p, i, n, uv, material=m))
+    b.add_camera_lookat(
+        (span * 0.8, blocks * 1.2, span * 0.8), (0, 1.5, 0), yfov=0.8
+    )
+    b.write(path)
+
+
+def make_citynight_scene(path, blocks=12, seed=11,
+                         windows_per_tower=6) -> None:
+    """Many-light scale scene: the city grid with emissive window quads on
+    every tower (~blocks^2 * windows_per_tower lights, > the
+    RT_TPU_LIGHT_CULL_MIN=512 threshold) — exercises the Morton-clustered
+    light-cull pdf path (ops/light_cull.py) on a benchmark-shaped scene,
+    not just the synthetic unit-test grid."""
+    rng = np.random.default_rng(seed)
+    b = GltfBuilder()
+    ground = b.add_material(color=(0.3, 0.3, 0.34), roughness=0.9)
+    span = blocks * 3.0
+    p, n, uv, i = quad_mesh(
+        (-span, 0, -span), (span, 0, -span), (span, 0, span), (-span, 0, span)
+    )
+    b.add_node(mesh=b.add_mesh(p, i, n, uv, material=ground))
+    window_tints = [(1.0, 0.9, 0.7), (0.8, 0.9, 1.0), (1.0, 0.75, 0.5)]
+    for gx in range(blocks):
+        for gz in range(blocks):
+            cx = (gx - blocks / 2 + 0.5) * 3.0
+            cz = (gz - blocks / 2 + 0.5) * 3.0
+            color = tuple(float(c) for c in rng.uniform(0.1, 0.45, 3))
+            m = b.add_material(color=color, roughness=float(rng.uniform(0.3, 0.9)))
+            hgt = float(rng.uniform(2.0, 7.0))
+            w = float(rng.uniform(0.7, 1.1))
+            p, n, uv, i = box_mesh((w, hgt, w), (cx, hgt / 2, cz))
+            b.add_node(mesh=b.add_mesh(p, i, n, uv, material=m))
+            # Emissive windows on the +x and +z faces, lit at random floors.
+            for _k in range(windows_per_tower):
+                tint = window_tints[int(rng.integers(len(window_tints)))]
+                wm = b.add_material(
+                    emissive=tint,
+                    emissive_strength=float(rng.uniform(4.0, 20.0)),
+                )
+                y = float(rng.uniform(0.3, hgt - 0.4))
+                s = 0.14
+                if rng.random() < 0.5:
+                    x0 = cx + w / 2 + 0.01
+                    z0 = cz + float(rng.uniform(-w / 2 + s, w / 2 - s))
+                    p, n, uv, i = quad_mesh(
+                        (x0, y - s, z0 - s), (x0, y - s, z0 + s),
+                        (x0, y + s, z0 + s), (x0, y + s, z0 - s),
+                    )
+                else:
+                    z0 = cz + w / 2 + 0.01
+                    x0 = cx + float(rng.uniform(-w / 2 + s, w / 2 - s))
+                    p, n, uv, i = quad_mesh(
+                        (x0 + s, y - s, z0), (x0 - s, y - s, z0),
+                        (x0 - s, y + s, z0), (x0 + s, y + s, z0),
+                    )
+                b.add_node(mesh=b.add_mesh(p, i, n, uv, material=wm))
+    b.add_camera_lookat(
+        (span * 0.8, blocks * 1.1, span * 0.8), (0, 1.5, 0), yfov=0.8
+    )
+    b.write(path)
+
+
 GENERATORS = {
     "cube": make_cube_scene,
     "cornell": make_cornell_scene,
     "textured": make_textured_scene,
     "demo": make_demo_scene,
+    "city": make_city_scene,
+    "citynight": make_citynight_scene,
 }
 
 

@@ -2,11 +2,12 @@
 raytracer_odin_tpu/models/build.py).
 
 `finish_scene` (raytracer.odin:62-91): collect emissive triangles into the
-Morton-ordered light list, order the triangles by the BVH permutation, pack
-the texture atlas, the 12-wide kernel triangle rows, the cluster AABBs and
-the scene-specialised shade rows, and upload them as a torch DeviceScene.
-The arrays that only the BVH intersector and the many-light cull (K5) read
-are not built yet.
+Morton-ordered light list and its packed light-cluster rows, order the
+triangles by the BVH permutation, pack the texture atlas, the 12-wide
+kernel triangle rows, the cluster AABBs and the scene-specialised shade
+rows, decide whether the scene is streamed, and upload them as a torch
+DeviceScene. The device BVH arrays (BVH intersector only) are not built
+yet.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from raytracer_odin_tpu_torch.models.scene import (
     scene_from_numpy,
 )
 from raytracer_odin_tpu_torch.ops import bvh as bvh_mod
-from raytracer_odin_tpu_torch.ops import culling
+from raytracer_odin_tpu_torch.ops import culling, light_cull
 from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
 from raytracer_odin_tpu_torch.ops import texture as texture_mod
 from raytracer_odin_tpu_torch.ops.geometry import aabb_of_triangles
@@ -31,33 +32,11 @@ from raytracer_odin_tpu_torch.ops.geometry import aabb_of_triangles
 EMISSIVE_EPS = 1e-6  # raytracer.odin:64
 
 
-def morton_order(centroids: np.ndarray) -> np.ndarray:
-    """Sort order by 30-bit Morton code of normalized centroids (the JAX
-    package's light_cull.morton_order): consecutive lights are spatial
-    neighbours."""
-    if len(centroids) == 0:
-        return np.zeros(0, np.int64)
-    lo = centroids.min(axis=0)
-    # uniform scale: a thin axis must not contribute pure noise bits
-    span = max(float((centroids.max(axis=0) - lo).max()), 1e-20)
-    q = np.clip(((centroids - lo) / span * 1023.0), 0, 1023).astype(np.uint64)
-
-    def spread(x):
-        x = (x | (x << 16)) & 0x030000FF
-        x = (x | (x << 8)) & 0x0300F00F
-        x = (x | (x << 4)) & 0x030C30C3
-        x = (x | (x << 2)) & 0x09249249
-        return x
-
-    code = (spread(q[:, 0]) << 2) | (spread(q[:, 1]) << 1) | spread(q[:, 2])
-    return np.argsort(code, kind="stable")
-
-
 def scene_arrays(host: HostScene, env_map: HostTexture | None = None,
                  verbose: bool = False):
     """Host-side half of finish_scene: (arrays, statics) with `arrays` the
     numpy array of every DeviceScene tensor field and `statics` its
-    env_tex, row_spec and tex_kinds."""
+    env_tex, row_spec, tex_kinds and stream."""
     n_tri = host.num_triangles
 
     # Emissive-material mask per triangle (raytracer.odin:63-66).
@@ -73,7 +52,9 @@ def scene_arrays(host: HostScene, env_map: HostTexture | None = None,
     light_u = host.u[light_sel]
     light_v = host.v[light_sel]
     light_ng = host.ng[light_sel]
-    order = morton_order(light_p + (light_u + light_v) / 3.0)
+    # Morton order: consecutive lights are spatial neighbours, the basis
+    # of the light clusters K5 culls.
+    order = light_cull.morton_order(light_p + (light_u + light_v) / 3.0)
     light_p = light_p[order]
     light_u = light_u[order]
     light_v = light_v[order]
@@ -81,6 +62,9 @@ def scene_arrays(host: HostScene, env_map: HostTexture | None = None,
     cross = np.cross(light_u, light_v)
     area2 = np.linalg.norm(cross, axis=-1)  # |cross| = 2 * area
     light_pdf_factor = 2.0 / np.where(area2 > 0, area2, 1.0)
+    light_rows = light_cull.pack_light_rows(
+        light_p, light_u, light_v, light_ng, light_pdf_factor)
+    lcl_lo, lcl_hi = light_cull.light_cluster_aabbs(light_rows)
 
     t0 = time.perf_counter()
     lo, hi = aabb_of_triangles(host.p, host.u, host.v)
@@ -202,12 +186,15 @@ def scene_arrays(host: HostScene, env_map: HostTexture | None = None,
         "light_p": light_p, "light_u": light_u, "light_v": light_v,
         "light_ng": light_ng, "light_pdf_factor": light_pdf_factor,
         "light_mask": np.ones(light_p.shape[0], np.float32),
+        "light_rows": light_rows, "light_cluster_lo": lcl_lo,
+        "light_cluster_hi": lcl_hi,
         "ptri": ptri, "cluster_lo": cl_lo, "cluster_hi": cl_hi,
         "shade_row": shade_row,
         "cam_pos": host.cam.pos, "cam_basis": host.cam.basis,
     }
     statics = {"env_tex": env_tex_id, "row_spec": row_spec,
-               "tex_kinds": tex_kinds}
+               "tex_kinds": tex_kinds,
+               "stream": ptri.shape[0] > pi.STREAM_TRIS}
     return arrays, statics
 
 

@@ -9,9 +9,9 @@ JAX package does:
     dataclasses are copied unchanged.
   * ``DeviceScene`` — a dataclass of SoA torch tensors on one device:
     triangle soup, material table, one flat texture atlas, light list, and
-    the Pallas-layout arrays the intersection kernels read. The fields that
-    only the BVH intersector, the many-light cull (K5) or the streamed
-    sweep (K4) read are not ported yet.
+    the Pallas-layout arrays the intersection and light kernels read. The
+    device BVH fields (read only by the BVH intersector) are not ported
+    yet.
 
 Triangle parameterization matches the reference exactly: p + u*b1 + v*b2 with
 u = p2-p1, v = p3-p1 (input.odin:209-224), shading normals n1..n3, texcoords
@@ -141,6 +141,11 @@ class DeviceScene:
     light_ng: Any             # [L, 3]
     light_pdf_factor: Any     # [L] = 2 / |cross(u, v)|
     light_mask: Any           # [L] 1.0 for real lights
+    # Many-light cull (ops/light_cull.py, K5): Morton-ordered light rows
+    # in LEAF_L-light clusters and the clusters' AABBs.
+    light_rows: Any           # [Lpad, 16] p u v ng fac valid pad
+    light_cluster_lo: Any     # [CL, 3]
+    light_cluster_hi: Any     # [CL, 3]
     # Intersection-kernel data (ops/pallas_intersect.py, ops/culling.py):
     ptri: Any                 # [Tpad, 12] packed p/u/v rows, LEAF-padded
     cluster_lo: Any           # [C, 3] treelet-cluster AABBs
@@ -153,6 +158,9 @@ class DeviceScene:
     env_tex: int = -1
     row_spec: tuple = ()
     tex_kinds: tuple = (False, False, False, False)
+    # Streamed scene (above pallas_intersect.STREAM_TRIS padded triangles,
+    # decided at build): RB-lane cluster lists swept by K4 instead of K2.
+    stream: bool = False
 
     @property
     def num_triangles(self) -> int:
@@ -169,18 +177,21 @@ class DeviceScene:
 
 # Tensor fields and their dtypes, in declaration order.
 _INT_FIELDS = ("tri_mat", "mat_tex", "tex_offset", "tex_width", "tex_height")
+_STATIC_FIELDS = ("env_tex", "row_spec", "tex_kinds", "stream")
 TENSOR_FIELDS = tuple(
     f.name for f in dataclasses.fields(DeviceScene)
-    if f.name not in ("env_tex", "row_spec", "tex_kinds")
+    if f.name not in _STATIC_FIELDS
 )
 
 
 def scene_from_numpy(arrays: dict, *, env_tex: int, row_spec: tuple,
-                     tex_kinds: tuple, device="cuda") -> DeviceScene:
+                     tex_kinds: tuple, stream: bool = False,
+                     device="cuda") -> DeviceScene:
     """Build a DeviceScene on `device` from numpy arrays keyed by field
     name (every name in TENSOR_FIELDS). The arrays may come from this
     package's finish_scene or from the JAX package's DeviceScene, so both
-    renderers can be fed one and the same scene."""
+    renderers can be fed one and the same scene (the JAX package's
+    streamed `ptri` is 128 wide: pass its first 12 columns)."""
     dev = torch.device(device)
     kw = {}
     for name in TENSOR_FIELDS:
@@ -188,4 +199,5 @@ def scene_from_numpy(arrays: dict, *, env_tex: int, row_spec: tuple,
         kw[name] = torch.tensor(np.asarray(arrays[name]), dtype=dtype,
                                 device=dev)
     return DeviceScene(**kw, env_tex=int(env_tex), row_spec=tuple(row_spec),
-                       tex_kinds=tuple(bool(k) for k in tex_kinds))
+                       tex_kinds=tuple(bool(k) for k in tex_kinds),
+                       stream=bool(stream))

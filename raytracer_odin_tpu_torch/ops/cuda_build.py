@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (csrc/intersect_kernels.cu).
+"""Build and load the port's CUDA kernels K1-K5 (csrc/intersect_kernels.cu).
 
 nvcc compiles the source into a shared library with a plain C interface at
 first use, into the gitignored `raytracer_odin_tpu_torch/build/` directory,
@@ -71,7 +71,11 @@ def load() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rt_mask_launch.argtypes = [p, p, p, i, i, i, i, p]
         lib.rt_mask_launch.restype = i
-        lib.rt_culled_launch.argtypes = [p, p, i, p, i, p, i, p, p]
-        lib.rt_culled_launch.restype = i
+        for name in ("rt_culled_launch", "rt_stream_launch",
+                     "rt_light_launch"):
+            getattr(lib, name).argtypes = [p, p, i, p, i, p, i, p, p]
+            getattr(lib, name).restype = i
+        lib.rt_brute_launch.argtypes = [p, i, p, i, p, p]
+        lib.rt_brute_launch.restype = i
         _lib = lib
         return _lib

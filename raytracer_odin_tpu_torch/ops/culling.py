@@ -1,10 +1,13 @@
-"""Cull glue between the mask kernel (K1) and the sweep kernel (K2): port
-of the exact-cull half of raytracer_odin_tpu/ops/culling.py.
+"""Cull glue between the mask kernel (K1) and the sweeps (K2, K4), and the
+conservative bundle-interval cull: port of raytracer_odin_tpu/ops/culling.py.
 
-Per-ray cluster masks are OR-ed over each RB_SUB-lane sub-block into that
-block's exact union work list (ascending cluster ids). The conservative
-bundle-interval cull (cull_clusters, block_bounds*, coherence_keys) serves
-scenes on the two-level layout and is not ported yet.
+Per-ray cluster masks are OR-ed over each list block into that block's
+exact union work list (ascending cluster ids). The bundle-interval cull
+(block_bounds*, cull_clusters) refines the super-cluster masks of the
+two-level layout (traverse.sweep_lists) and culls the light clusters of
+the many-light pdf (light_cull), and gives the nearest-first list order.
+The coherence keys of the JAX package's non-exact sorted cast are not
+ported (no path of the port sorts without exact masks).
 """
 
 from __future__ import annotations
@@ -31,6 +34,79 @@ def cluster_aabbs(tri_lo: np.ndarray, tri_hi: np.ndarray) -> tuple:
     )
 
 
+def block_bounds(o, d, block: int):
+    """Per-block bounds of o, d [Npad, 3] (Npad % block == 0). Returns
+    (o_lo, o_hi, d_lo, d_hi), [NB, 3] each."""
+    nb = o.shape[0] // block
+    ob = o.reshape(nb, block, 3)
+    db = d.reshape(nb, block, 3)
+    return ob.amin(1), ob.amax(1), db.amin(1), db.amax(1)
+
+
+def block_bounds_rows(rays, block: int):
+    """block_bounds of rays packed as [8, Npad] kernel rows (rows 0-2
+    origin, 3-5 direction)."""
+    nb = rays.shape[1] // block
+    o = rays[0:3].reshape(3, nb, block)
+    d = rays[3:6].reshape(3, nb, block)
+    return (o.amin(2).T, o.amax(2).T, d.amin(2).T, d.amax(2).T)
+
+
+def cull_clusters(o_lo, o_hi, d_lo, d_hi, clo, chi):
+    """Conservative bundle-vs-AABB test of every block [NB, 3] bound
+    against every cluster [C, 3]. Returns (hit mask [NB, C] bool, entry
+    distance max(near, 0) [NB, C] f32).
+
+    Per axis: the loosest entry over the (origin x direction) intervals and
+    the loosest exit; direction intervals straddling or touching zero leave
+    the axis unconstrained. Hit iff max(entry) <= min(exit) and exit >= 0.
+    Axis-parallel bundles (a direction interval exactly zero) never move on
+    that axis, so there the test is origin-interval overlap."""
+    o_lo = o_lo[:, None]
+    o_hi = o_hi[:, None]
+    d_lo = d_lo[:, None]
+    d_hi = d_hi[:, None]
+    clo = clo[None]
+    chi = chi[None]
+
+    straddle = (d_lo <= 0) & (d_hi >= 0)
+    # IEEE division: zero endpoints give +/-inf (and straddle anyway)
+    inv_a = 1.0 / d_lo
+    inv_b = 1.0 / d_hi
+    inv_lo = torch.minimum(inv_a, inv_b)
+    inv_hi = torch.maximum(inv_a, inv_b)
+
+    # slab offsets: s1 = clo - o in [clo - o_hi, clo - o_lo]
+    s1_lo = clo - o_hi
+    s1_hi = clo - o_lo
+    s2_lo = chi - o_hi
+    s2_hi = chi - o_lo
+
+    def imul(a_lo, a_hi, b_lo, b_hi):
+        p1 = a_lo * b_lo
+        p2 = a_lo * b_hi
+        p3 = a_hi * b_lo
+        p4 = a_hi * b_hi
+        return (
+            torch.minimum(torch.minimum(p1, p2), torch.minimum(p3, p4)),
+            torch.maximum(torch.maximum(p1, p2), torch.maximum(p3, p4)),
+        )
+
+    t1_lo, t1_hi = imul(s1_lo, s1_hi, inv_lo, inv_hi)
+    t2_lo, t2_hi = imul(s2_lo, s2_hi, inv_lo, inv_hi)
+    entry_lo = torch.where(straddle, -BIG, torch.minimum(t1_lo, t2_lo))
+    exit_hi = torch.where(straddle, BIG, torch.maximum(t1_hi, t2_hi))
+
+    near = entry_lo.amax(dim=-1)
+    far = exit_hi.amin(dim=-1)
+    hit = (near <= far) & (far >= 0)
+
+    para = (d_lo == 0) & (d_hi == 0)
+    overlap = (o_hi >= clo) & (o_lo <= chi)
+    hit = hit & torch.where(para, overlap, True).all(dim=-1)
+    return hit, torch.clamp(near, min=0.0)
+
+
 def or_blocks_packed(words, block: int):
     """Row-major [W, Npad] mask words -> per-block OR [NB, W] (a halving
     tree, `block` a power of two: torch has no bitwise-or reduction)."""
@@ -49,14 +125,30 @@ def unpack_mask(words, c: int):
     return ((w >> (idx % 32)) & 1).bool()
 
 
-def build_lists(hit_mask, cap: int | None = None):
+def build_lists(hit_mask, cap: int | None = None, near=None,
+                chunk: int | None = None):
     """[NB, C] bool -> (counts [NB] i32, lists [NB, min(C, cap)] i32): the
-    hit cluster ids of each row in ascending order, then the others. Rows
-    hitting more than `cap` clusters get count -1 (sweep every cluster)."""
+    hit cluster ids of each row first, then the others. Order of the hit
+    ids: ascending; with `near` [NB, C] (cull_clusters' entry distances)
+    nearest-first, equal distances by ascending id (the JAX package's
+    unstable sort leaves that tie order open); with `chunk` as well,
+    chunk-major (id // chunk) and nearest-first within a chunk. Rows hitting
+    more than `cap` clusters get count -1 (sweep every cluster)."""
     nb, c = hit_mask.shape
-    ids = torch.arange(c, dtype=torch.int32, device=hit_mask.device)
-    key = torch.where(hit_mask, ids, c + ids)  # unique keys
-    lists = torch.argsort(key, dim=-1).to(torch.int32)
+    dev = hit_mask.device
+    ids = torch.arange(c, dtype=torch.int32, device=dev)
+    if near is None:
+        key = torch.where(hit_mask, ids, c + ids)  # unique keys
+        lists = torch.argsort(key, dim=-1)
+    else:
+        key = torch.where(hit_mask, near, torch.tensor(BIG, device=dev))
+        lists = torch.sort(key, dim=-1, stable=True).indices
+        if chunk is not None:
+            ck = torch.where(hit_mask, ids // chunk, -(-c // chunk))
+            ck = torch.gather(ck, 1, lists)
+            lists = torch.gather(
+                lists, 1, torch.sort(ck, dim=-1, stable=True).indices)
+    lists = lists.to(torch.int32)
     counts = hit_mask.sum(dim=-1).to(torch.int32)
     if cap is not None and cap < c:
         counts = torch.where(counts > cap, -1, counts)

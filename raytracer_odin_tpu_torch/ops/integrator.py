@@ -36,7 +36,8 @@ class TraceOptions(NamedTuple):
     # Dead-lane compaction: static lane budgets for bounces 1..depth-1
     # (runtime.auto_lane_schedule). Lanes beyond a budget that are still
     # alive are counted in aux["overflow"]: the render is then invalid and
-    # runtime.render_scene re-renders uncompacted.
+    # runtime.render_scene re-renders uncompacted. Ignored where
+    # compaction_applies is false.
     lane_schedule: tuple = None
 
 
@@ -222,7 +223,7 @@ def trace(scene, o, d, key, sample, opts: TraceOptions):
     ([depth] live lanes entering each bounce)."""
     batch_shape = tuple(o.shape[:-1])
     dev = o.device
-    if opts.lane_schedule is not None and opts.depth > 1:
+    if opts.lane_schedule is not None and compaction_applies(opts):
         return _trace_compacted(scene, o, d, key, sample, opts)
 
     n_lanes = 1
@@ -259,6 +260,14 @@ def trace(scene, o, d, key, sample, opts: TraceOptions):
         "alive_counts": counts,
     }
     return radiance, aux
+
+
+def compaction_applies(opts: TraceOptions) -> bool:
+    """Dead-lane compaction needs depth > 1 and the exact-culled sorted
+    cast ("pallas", or "auto", which resolves to it); the brute sweep
+    ("pallas_brute") always runs uncompacted, as in the JAX package
+    (integrator._compaction_applies)."""
+    return opts.depth > 1 and opts.intersector in ("pallas", "auto")
 
 
 def first_bounce(scene, o, d, key, sample):

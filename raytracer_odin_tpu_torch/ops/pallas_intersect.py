@@ -8,6 +8,13 @@ next to a plain PyTorch version of each:
     (replaces `_mask_kernel`).
   * K2 `intersect_culled_rows` — list-driven Moller-Trumbore sweep of each
     RB_SUB-ray sub-block's cluster list (replaces `_culled_kernel`).
+  * K3 `intersect_brute_rows` — every RB-ray block against every cluster
+    (replaces `_brute_kernel`).
+  * K4 `intersect_stream_rows` — the K2 sweep with one list per RB-ray
+    block, for scenes above STREAM_TRIS (replaces `_culled_stream_kernel`).
+
+K2, K3 and K4 share one cluster test and winner rule (the CUDA device
+functions `test_cluster` / `sweep_block`, and `_culled_plain` here).
 
 A wrapper launches its CUDA kernel for tensors on a CUDA device and counts
 the launch in its `launches` attribute; it runs the plain version only for
@@ -19,7 +26,10 @@ bit (chip_smoke.py checks it at the main path's shapes).
 Layouts are the JAX package's: rays [8, Npad] f32 rows (o.xyz, d.xyz, 2
 spare), masks [W, Npad] int32 words, hits [8, Npad] f32 rows (t, triangle
 index as f32 with -1 on a miss, 6 zero rows), triangles [Tpad, 12] f32 rows
-(p.xyz u.xyz v.xyz, 3 pad) in BVH order, LEAF-padded.
+(p.xyz u.xyz v.xyz, 3 pad) in BVH order, LEAF-padded. Streamed scenes keep
+the 12-wide rows: the JAX package widens them to 128 only because Mosaic
+DMA slices must be 128-lane aligned, and a CUDA block reads 12-wide rows
+from device memory as K2 does.
 """
 
 from __future__ import annotations
@@ -31,9 +41,14 @@ LEAF = 64      # triangles per cluster
 RB = 512       # rays per bundle: lane counts are padded to RB multiples
 RB_SUB = 256   # rays per cluster list (one K2 thread block)
 BIG = 3.0e38
-# Above this many padded triangles the JAX package streams the triangle
-# array through K4 (`_culled_stream_kernel`, 128-wide rows), not ported yet.
-STREAM_TRIS = 8 * 24 * 1024
+# The JAX package's per-call VMEM triangle budget. Resident scenes above it
+# are swept there in chunks of this many triangles, merged by strict min-t
+# in ascending chunk order; the port sweeps once over chunk-major lists
+# (traverse.sweep_lists), which gives the same hits, equal-t ties included.
+CHUNK_TRIS = 24 * 1024
+# Above this many padded triangles a scene is streamed: decided once at
+# scene build (DeviceScene.stream), it selects RB-lane lists and K4.
+STREAM_TRIS = 8 * CHUNK_TRIS
 # Mask kernel |d| clamp (sign kept) before the exact reciprocal.
 TINY = 1e-30
 
@@ -71,17 +86,18 @@ def pad_triangles(tri_p, tri_u, tri_v) -> np.ndarray:
     multiple with degenerate far-away rows."""
     t = np.asarray(tri_p).shape[0]
     tpad = max(((t + LEAF - 1) // LEAF) * LEAF, LEAF)
-    if tpad > STREAM_TRIS:
-        raise NotImplementedError(
-            f"{tpad} padded triangles need the streamed sweep (K4), which "
-            "is not ported yet"
-        )
     arr = np.zeros((tpad, 12), np.float32)
     arr[:t, 0:3] = np.asarray(tri_p)
     arr[:t, 3:6] = np.asarray(tri_u)
     arr[:t, 6:9] = np.asarray(tri_v)
     arr[t:, 0:3] = BIG
     return arr
+
+
+def list_block(scene) -> int:
+    """Lane granularity of the scene's cluster lists: RB for streamed
+    scenes (K4), RB_SUB for resident ones (K2)."""
+    return RB if scene.stream else RB_SUB
 
 
 def _check(name, x, dtype, ndim, device):
@@ -187,12 +203,13 @@ cluster_masks_rows.launches = 0
 # K2: list-driven culled sweep.
 # ---------------------------------------------------------------------------
 
-def _culled_plain(counts, lists, rays, tris):
-    """Plain PyTorch version of K2: list position k of every sub-block at
-    once, sub-blocks in chunks so intermediates stay near 1 GB at most."""
+def _culled_plain(counts, lists, rays, tris, block: int = RB_SUB):
+    """Plain PyTorch version of K2 (block RB_SUB), K4 (block RB) and K3
+    (block RB, every count -1): list position k of every `block`-ray list
+    at once, lists in chunks so intermediates stay near 1 GB at most."""
     npad = rays.shape[1]
     dev = rays.device
-    nsb = npad // RB_SUB
+    nsb = npad // block
     n_clusters = tris.shape[0] // LEAF
     width = lists.shape[1]
     tri9 = tris[:, :9].reshape(n_clusters, LEAF, 9)
@@ -200,12 +217,12 @@ def _culled_plain(counts, lists, rays, tris):
     overflow = counts < 0
     n_of = torch.where(overflow, n_clusters, counts)
     out = torch.zeros((8, npad), dtype=torch.float32, device=dev)
-    chunk = max(1, _SWEEP_CHUNK_ELEMS // (LEAF * RB_SUB))
+    chunk = max(1, _SWEEP_CHUNK_ELEMS // (LEAF * block))
     for s0 in range(0, nsb, chunk):
         s1 = min(nsb, s0 + chunk)
-        r = rays[:, s0 * RB_SUB:s1 * RB_SUB].reshape(8, s1 - s0, 1, RB_SUB)
-        ox, oy, oz, dx, dy, dz = (r[i] for i in range(6))  # [nb, 1, RB_SUB]
-        best_t = torch.full((s1 - s0, 1, RB_SUB), BIG, dtype=torch.float32,
+        r = rays[:, s0 * block:s1 * block].reshape(8, s1 - s0, 1, block)
+        ox, oy, oz, dx, dy, dz = (r[i] for i in range(6))  # [nb, 1, block]
+        best_t = torch.full((s1 - s0, 1, block), BIG, dtype=torch.float32,
                             device=dev)
         best_i = torch.full_like(best_t, -1.0)
         n_c = n_of[s0:s1]
@@ -220,7 +237,7 @@ def _culled_plain(counts, lists, rays, tris):
             px, py, pz = tr[..., 0:1], tr[..., 1:2], tr[..., 2:3]
             ux, uy, uz = tr[..., 3:4], tr[..., 4:5], tr[..., 5:6]
             vx, vy, vz = tr[..., 6:7], tr[..., 7:8], tr[..., 8:9]
-            # pvec = d x v  -> [nb, LEAF, RB_SUB]
+            # pvec = d x v  -> [nb, LEAF, block]
             pvx = dy * vz - dz * vy
             pvy = dz * vx - dx * vz
             pvz = dx * vy - dy * vx
@@ -239,7 +256,7 @@ def _culled_plain(counts, lists, rays, tris):
             inside = torch.minimum(torch.minimum(bu, bv), 1.0 - (bu + bv)) >= 0
             ok = inside & (t > 0) & (t < best_t)
             t_ok = torch.where(ok, t, BIG)
-            tmin = t_ok.amin(dim=1, keepdim=True)           # [nb, 1, RB_SUB]
+            tmin = t_ok.amin(dim=1, keepdim=True)           # [nb, 1, block]
             better = (tmin < best_t) & active[:, None, None]
             # smallest row achieving tmin
             win_row = torch.where(t_ok <= tmin, rows, float(LEAF)).amin(
@@ -247,8 +264,47 @@ def _culled_plain(counts, lists, rays, tris):
             idx = (cid * LEAF).to(torch.float32)[:, None, None] + win_row
             best_i = torch.where(better, idx, best_i)
             best_t = torch.where(better, tmin, best_t)
-        out[0, s0 * RB_SUB:s1 * RB_SUB] = best_t.reshape(-1)
-        out[1, s0 * RB_SUB:s1 * RB_SUB] = best_i.reshape(-1)
+        out[0, s0 * block:s1 * block] = best_t.reshape(-1)
+        out[1, s0 * block:s1 * block] = best_i.reshape(-1)
+    return out
+
+
+def _check_sweep(scene_tris, counts, lists, rays, block: int):
+    dev = rays.device
+    _check("rays", rays, torch.float32, 2, dev)
+    _check("scene_tris", scene_tris, torch.float32, 2, dev)
+    _check("counts", counts, torch.int32, 1, dev)
+    _check("lists", lists, torch.int32, 2, dev)
+    npad = rays.shape[1]
+    if (rays.shape[0] != 8 or npad % block or scene_tris.shape[1] != 12
+            or scene_tris.shape[0] % LEAF
+            or counts.shape[0] != npad // block
+            or lists.shape[0] != counts.shape[0] or lists.shape[1] < 1):
+        raise ValueError(
+            f"bad shapes rays {tuple(rays.shape)} tris "
+            f"{tuple(scene_tris.shape)} counts {tuple(counts.shape)} "
+            f"lists {tuple(lists.shape)} for {block}-ray lists"
+        )
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _sweep_launch(entry, scene_tris, counts, lists, rays):
+    from raytracer_odin_tpu_torch.ops import cuda_build
+
+    dev = rays.device
+    npad = rays.shape[1]
+    out = torch.empty((8, npad), dtype=torch.float32, device=dev)
+    if npad == 0:
+        return out
+    rc = getattr(cuda_build.load(), entry)(
+        counts.data_ptr(), lists.data_ptr(), lists.shape[1],
+        rays.data_ptr(), npad, scene_tris.data_ptr(),
+        scene_tris.shape[0] // LEAF, out.data_ptr(), _stream_of(dev),
+    )
+    if rc != 0:
+        raise RuntimeError(f"{entry} failed: cudaError {rc}")
     return out
 
 
@@ -259,39 +315,88 @@ def intersect_culled_rows(scene_tris, counts, lists, rays):
     rays [8, Npad] f32 rows with the RAY_EPS offset applied, Npad a multiple
     of RB_SUB. Returns [8, Npad] f32 rows (t, index as f32, 6 zero rows);
     t is BIG and the index -1 on a miss."""
-    dev = rays.device
-    _check("rays", rays, torch.float32, 2, dev)
-    _check("scene_tris", scene_tris, torch.float32, 2, dev)
-    _check("counts", counts, torch.int32, 1, dev)
-    _check("lists", lists, torch.int32, 2, dev)
-    npad = rays.shape[1]
-    if (rays.shape[0] != 8 or npad % RB_SUB or scene_tris.shape[1] != 12
-            or scene_tris.shape[0] % LEAF
-            or counts.shape[0] != npad // RB_SUB
-            or lists.shape[0] != counts.shape[0] or lists.shape[1] < 1):
-        raise ValueError(
-            f"bad shapes rays {tuple(rays.shape)} tris "
-            f"{tuple(scene_tris.shape)} counts {tuple(counts.shape)} "
-            f"lists {tuple(lists.shape)}"
-        )
+    dev = _check_sweep(scene_tris, counts, lists, rays, RB_SUB)
     if dev.type == "cpu":
-        return _culled_plain(counts, lists, rays, scene_tris)
-    if dev.type != "cuda":
-        raise ValueError(f"intersect_culled_rows: unsupported device {dev}")
-    from raytracer_odin_tpu_torch.ops import cuda_build
-
-    out = torch.empty((8, npad), dtype=torch.float32, device=dev)
-    if npad == 0:
-        return out
-    rc = cuda_build.load().rt_culled_launch(
-        counts.data_ptr(), lists.data_ptr(), lists.shape[1],
-        rays.data_ptr(), npad, scene_tris.data_ptr(),
-        scene_tris.shape[0] // LEAF, out.data_ptr(), _stream_of(dev),
-    )
-    if rc != 0:
-        raise RuntimeError(f"sweep kernel launch failed: cudaError {rc}")
+        return _culled_plain(counts, lists, rays, scene_tris, RB_SUB)
+    out = _sweep_launch("rt_culled_launch", scene_tris, counts, lists, rays)
     intersect_culled_rows.launches += 1
     return out
 
 
 intersect_culled_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: streamed sweep (one list per RB-ray block).
+# ---------------------------------------------------------------------------
+
+def intersect_stream_rows(scene_tris, counts, lists, rays):
+    """intersect_culled_rows for streamed scenes (K4): one cluster list per
+    RB-ray block. counts [NB] int32 (-1: sweep every cluster), lists
+    [NB, C] int32, rays [8, Npad] RAY_EPS-offset rows, Npad a multiple of
+    RB. Returns [8, Npad] f32 rows (t, index as f32, 6 zero rows)."""
+    dev = _check_sweep(scene_tris, counts, lists, rays, RB)
+    if dev.type == "cpu":
+        return _culled_plain(counts, lists, rays, scene_tris, RB)
+    out = _sweep_launch("rt_stream_launch", scene_tris, counts, lists, rays)
+    intersect_stream_rows.launches += 1
+    return out
+
+
+intersect_stream_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: brute sweep (every RB-ray block against every cluster).
+# ---------------------------------------------------------------------------
+
+def _brute_plain(rays, tris):
+    """Plain PyTorch version of K3: K4's plain sweep with every count -1."""
+    nb = rays.shape[1] // RB
+    counts = torch.full((nb,), -1, dtype=torch.int32, device=rays.device)
+    lists = torch.zeros((nb, 1), dtype=torch.int32, device=rays.device)
+    return _culled_plain(counts, lists, rays, tris, RB)
+
+
+def intersect_brute_rows(scene_tris, rays):
+    """Nearest hit of every ray against every triangle cluster (K3).
+    scene_tris [Tpad, 12] f32; rays [8, Npad] f32 rows with the RAY_EPS
+    offset applied, Npad a multiple of RB. Returns [8, Npad] f32 rows (t,
+    index as f32, 6 zero rows); t is BIG and the index -1 on a miss."""
+    dev = rays.device
+    _check("rays", rays, torch.float32, 2, dev)
+    _check("scene_tris", scene_tris, torch.float32, 2, dev)
+    npad = rays.shape[1]
+    if (rays.shape[0] != 8 or npad % RB or scene_tris.shape[1] != 12
+            or scene_tris.shape[0] % LEAF):
+        raise ValueError(f"bad shapes rays {tuple(rays.shape)} tris "
+                         f"{tuple(scene_tris.shape)}")
+    if dev.type == "cpu":
+        return _brute_plain(rays, scene_tris)
+    if dev.type != "cuda":
+        raise ValueError(f"intersect_brute_rows: unsupported device {dev}")
+    from raytracer_odin_tpu_torch.ops import cuda_build
+
+    out = torch.empty((8, npad), dtype=torch.float32, device=dev)
+    if npad == 0:
+        return out
+    rc = cuda_build.load().rt_brute_launch(
+        rays.data_ptr(), npad, scene_tris.data_ptr(),
+        scene_tris.shape[0] // LEAF, out.data_ptr(), _stream_of(dev),
+    )
+    if rc != 0:
+        raise RuntimeError(f"brute kernel launch failed: cudaError {rc}")
+    intersect_brute_rows.launches += 1
+    return out
+
+
+intersect_brute_rows.launches = 0
+
+
+def intersect_brute(scene_tris, o, d):
+    """Nearest hit of rays o, d [..., 3] against the packed triangle array
+    through K3. Returns (t, idx int32) in the batch shape, idx into the
+    packed (BVH-permuted) order and -1 on a miss; t WITHOUT the RAY_EPS
+    handling (the JAX package's zero bu/bv are not carried)."""
+    rays, batch_shape, n = pack_rays(o, d)
+    return unpack_hits(intersect_brute_rows(scene_tris, rays), batch_shape, n)

@@ -5,8 +5,9 @@ One-sample MIS mixture, weights 1/3 cosine-hemisphere, 1/3 emissive
 surface, 1/3 GGX-VNDF (shading.odin:139-151); without emissive surfaces the
 light branch is skipped and VNDF takes its mass (pdf weighted x2). The
 light pdf sums over every emissive triangle hit along the ray, converting
-area to solid angle with t^2/|cos| (shading.odin:52-60), as a dense sweep
-over the light list. The BRDF is glTF metallic-roughness Cook-Torrance GGX
+area to solid angle with t^2/|cos| (shading.odin:52-60): a dense sweep
+over the light list, or from light_cull.LIGHT_CULL_MIN lights on the
+cluster-culled sum of K5 (ops/light_cull.py). The BRDF is glTF metallic-roughness Cook-Torrance GGX
 + Lambert (shading.odin:164-204), term by term with its quirks. All
 randomness comes in as explicit uniform tensors.
 """
@@ -17,6 +18,7 @@ import math
 
 import torch
 
+from raytracer_odin_tpu_torch.ops import light_cull
 from raytracer_odin_tpu_torch.ops.geometry import RAY_EPS, intersect_triangle
 from raytracer_odin_tpu_torch.utils.math3d import (
     cross,
@@ -30,9 +32,6 @@ from raytracer_odin_tpu_torch.utils.math3d import (
 
 PI = math.pi
 TAU = 2.0 * math.pi
-# The JAX package sums the light pdf with a Pallas kernel (K5,
-# ops/light_cull.py) from this many lights on; that path is not ported yet.
-LIGHT_CULL_MIN = 512
 
 
 def sphere_uniform(u1, u2):
@@ -197,17 +196,17 @@ def sample_direction(scene, mat_pos, mat_normal, mat_roughness, in_d,
 
 def mixture_pdf(scene, mat_pos, mat_normal, mat_roughness, in_d, out_d,
                 has_lights: bool):
-    """(cos_pdf + light_pdf + vndf_pdf * (1|2)) / 3 (shading.odin:153-162),
-    with the dense light-pdf sum."""
+    """(cos_pdf + light_pdf + vndf_pdf * (1|2)) / 3 (shading.odin:153-162).
+    The light pdf is the dense sum below light_cull.LIGHT_CULL_MIN lights
+    and the culled sum (K5) from there on, on any device (the JAX package
+    takes the dense sum whenever its backend is the CPU)."""
     p_cos = cosine_weighted_pdf(mat_normal, out_d)
     p_vndf = vndf_pdf(mat_normal, -in_d, sq(mat_roughness), out_d)
     if has_lights:
-        if scene.light_p.shape[0] >= LIGHT_CULL_MIN:
-            raise NotImplementedError(
-                f"{scene.light_p.shape[0]} lights take the culled light-pdf "
-                "kernel (K5), which is not ported yet"
-            )
-        p_light = light_pdf_sum(scene, mat_pos, out_d)
+        if scene.light_p.shape[0] >= light_cull.LIGHT_CULL_MIN:
+            p_light = light_cull.light_pdf_sum_culled(scene, mat_pos, out_d)
+        else:
+            p_light = light_pdf_sum(scene, mat_pos, out_d)
         return (p_cos + p_light + p_vndf) / 3.0
     return (p_cos + p_vndf * 2.0) / 3.0
 

@@ -4,13 +4,14 @@ Pallas path of raytracer_odin_tpu/ops/traverse.py).
 Every cast follows `cast_ray` semantics (raytracer.odin:416-430): the
 origin is pushed forward by RAY_EPS along the direction, the nearest hit
 with t > 0 wins, and RAY_EPS is added back to the returned t (BIG on a
-miss). Culling is exact: K1 gives each ray its cluster mask, the masks are
-OR-ed per RB_SUB sub-block into ascending cluster lists, and K2 sweeps
-them. Ported here: the one-level exact layout (g == 1: at most
-MAX_EXACT_CLUSTERS clusters), the tiled camera-ray branch and the
-lexicographically sorted branch. The two-level layout, chunked and
-streamed sweeps, two-phase culling, and the brute and BVH intersectors are
-not ported yet.
+miss). Culling is exact: K1 gives each ray its (super-)cluster mask, the
+masks are OR-ed per list block into cluster lists, and K2 (resident
+scenes) or K4 (streamed scenes) sweeps them. Scenes above
+MAX_EXACT_CLUSTERS clusters take the two-level layout: mask bits cover
+super-clusters of g consecutive clusters, refined per block by the
+conservative interval cull. `intersector="pallas_brute"` sweeps every
+cluster through K3 instead. Not ported: two-phase culling (TWO_PHASE_K)
+and the JAX package's brute and BVH intersectors.
 """
 
 from __future__ import annotations
@@ -79,48 +80,94 @@ def lex_sort_perm(keys):
 
 
 def exact_cull_layout(scene):
-    """Exact-cull layout (g, n_super, aabb8): g == 1 cluster per mask bit;
-    aabb8 [S_pad, 8] holds lo.xyz, hi.xyz, 2 pad columns per cluster,
-    padded to a multiple of 32 rows with (BIG, -BIG) boxes."""
+    """Two-level exact-cull layout (g, n_super, aabb8): g clusters per mask
+    bit (1 when the scene has at most MAX_EXACT_CLUSTERS clusters, else
+    ceil(C / MAX_EXACT_CLUSTERS)); aabb8 [S_pad, 8] holds lo.xyz, hi.xyz,
+    2 pad columns per (super-)cluster, row s bounding clusters
+    [s*g, (s+1)*g) (consecutive clusters are BVH-ordered treelets), padded
+    to a multiple of 32 rows with (BIG, -BIG) boxes."""
     n_clusters = scene.cluster_lo.shape[0]
     g = -(-n_clusters // MAX_EXACT_CLUSTERS)
+    n_super = -(-n_clusters // g)
+    lo, hi = scene.cluster_lo, scene.cluster_hi
+    dev = lo.device
     if g > 1:
-        raise NotImplementedError(
-            f"{n_clusters} clusters need the two-level exact-cull layout "
-            f"(g = {g}), which is not ported yet"
-        )
-    dev = scene.cluster_lo.device
-    s_pad = -(-n_clusters // 32) * 32
+        pad = n_super * g - n_clusters
+        lo = torch.cat([lo, torch.full((pad, 3), BIG, dtype=torch.float32,
+                                       device=dev)])
+        hi = torch.cat([hi, torch.full((pad, 3), -BIG, dtype=torch.float32,
+                                       device=dev)])
+        lo = lo.reshape(n_super, g, 3).amin(dim=1)
+        hi = hi.reshape(n_super, g, 3).amax(dim=1)
+    s_pad = -(-n_super // 32) * 32
     aabb8 = torch.zeros((s_pad, 8), dtype=torch.float32, device=dev)
     aabb8[:, 0:3] = BIG
     aabb8[:, 3:6] = -BIG
-    aabb8[:n_clusters, 0:3] = scene.cluster_lo
-    aabb8[:n_clusters, 3:6] = scene.cluster_hi
-    return g, n_clusters, aabb8
+    aabb8[:n_super, 0:3] = lo
+    aabb8[:n_super, 3:6] = hi
+    return g, n_super, aabb8
 
 
 def _sweep_exact(scene, words_packed, rays, g: int, n_super: int,
                  cap: int = 256):
-    """Per-sub-block cluster lists from per-ray masks + the culled sweep.
-    words_packed: [W, Npad] int32 masks of `rays` ([8, Npad] RAY_EPS-offset
-    kernel rows). At g == 1 the mask bits are the clusters: the OR-union per
-    sub-block is the exact list, swept in ascending id order. The JAX
-    package splits scenes above its per-call VMEM budget into chunked
-    sweeps merged by strict min-t in ascending chunk order; one sweep over
-    the whole ascending list gives the same hits, so a CUDA block reads its
-    whole list."""
-    if g != 1:
-        raise NotImplementedError("two-level sweep (g > 1) is not ported yet")
-    counts, lists = exact_lists(words_packed, n_super, cap)
+    """Cluster lists from per-ray (super-)masks (sweep_lists) + the sweep:
+    K4 over RB-lane lists for streamed scenes, K2 over RB_SUB-lane lists
+    otherwise. words_packed: [W, Npad] int32 masks of `rays` ([8, Npad]
+    RAY_EPS-offset kernel rows). Returns the [8, Npad] kernel output rows.
+
+    Tie rule: across clusters only a strictly smaller t replaces, so among
+    equal-t hits the first listed cluster wins. At g == 1 the lists are
+    ascending ids, and one sweep equals the JAX package's chunked resident
+    sweep (chunks merged by strict min-t in ascending chunk order). At
+    g > 1 the JAX package's chunk lists are nearest-first and uncapped: one
+    sweep equals its chunks, equal-t ties included, only over uncapped
+    chunk-major lists (chunk, then near), which is what sweep_lists builds
+    for resident scenes above CHUNK_TRIS."""
+    counts, lists = sweep_lists(scene, words_packed, rays, g, n_super, cap)
+    if scene.stream:
+        return pi.intersect_stream_rows(scene.ptri, counts, lists, rays)
     return pi.intersect_culled_rows(scene.ptri, counts, lists, rays)
 
 
-def exact_lists(words_packed, n_super: int, cap: int = 256):
-    """(counts [Nsub], lists [Nsub, <= cap]) of one-level exact culling:
-    the OR of the [W, Npad] ray masks over each RB_SUB sub-block, as
-    ascending cluster ids (count -1 when a list would exceed cap)."""
+def sweep_lists(scene, words_packed, rays, g: int, n_super: int,
+                cap: int = 256):
+    """(counts, lists) of the sweep of `rays` with masks `words_packed`, one
+    row per list block (pallas_intersect.list_block).
+
+    g == 1: the mask bits are the clusters; the OR-union per block is the
+    exact list, ascending ids.
+    g > 1: each block's super bits expand to their g member clusters, ANDed
+    with the conservative interval cull (culling.cull_clusters), whose
+    entry distance orders the survivors nearest-first. Streamed scenes and
+    scenes of at most CHUNK_TRIS / LEAF clusters get one list capped at
+    `cap` (count -1 beyond it: sweep every cluster); larger resident scenes
+    get uncapped chunk-major lists (see _sweep_exact)."""
+    lb = pi.list_block(scene)
+    if g == 1:
+        return exact_lists(words_packed, n_super, cap, lb)
+    n_clusters = scene.cluster_lo.shape[0]
     smask = culling.unpack_mask(
-        culling.or_blocks_packed(words_packed, pi.RB_SUB), n_super
+        culling.or_blocks_packed(words_packed, lb), n_super
+    )
+    cmask = smask.repeat_interleave(g, dim=1)[:, :n_clusters]
+    imask, near = culling.cull_clusters(
+        *culling.block_bounds_rows(rays, lb), scene.cluster_lo,
+        scene.cluster_hi,
+    )
+    bmask = cmask & imask
+    chunk_c = max(1, pi.CHUNK_TRIS // pi.LEAF)
+    if scene.stream or n_clusters <= chunk_c:
+        return culling.build_lists(bmask, cap=cap, near=near)
+    return culling.build_lists(bmask, near=near, chunk=chunk_c)
+
+
+def exact_lists(words_packed, n_super: int, cap: int = 256,
+                block: int = pi.RB_SUB):
+    """(counts [NB], lists [NB, <= cap]) of one-level exact culling: the OR
+    of the [W, Npad] ray masks over each `block`-lane block, as ascending
+    cluster ids (count -1 when a list would exceed cap)."""
+    smask = culling.unpack_mask(
+        culling.or_blocks_packed(words_packed, block), n_super
     )
     return culling.build_lists(smask, cap=cap)
 
@@ -187,18 +234,25 @@ def sort_exact(scene, o2, d2, alive_f, aabb8, n_super: int):
     return rays2, words, perm
 
 
-def cast_rays_pallas(scene, o, d, sort: bool = False, alive=None):
-    """Exact-culled cast through K1 and K2 (cast_ray semantics).
+def cast_rays_pallas(scene, o, d, culled: bool = True, sort: bool = False,
+                     alive=None):
+    """Cast through the kernels (cast_ray semantics).
 
+    culled=True: exact culling through K1 and the list sweep (K2, or K4
+    for streamed scenes). culled=False: every cluster through K3, without
+    masks (sort must be False).
     sort=False: an [H, W] batch goes through the (16 x 32) image-tile order
     (camera rays are coherent), any other batch in lane order.
     sort=True: lanes are re-bucketed by the lexicographic (dead|octant,
     mask) sort before the sweep and the results scattered back; dead lanes
     (alive=False) come back as misses. Returns (t, idx) in the batch shape
     (the JAX package's zero bu/bv are not carried)."""
+    if sort and not culled:
+        raise ValueError("the brute sweep (culled=False) takes no sort")
     o = o + d * RAY_EPS
     batch_shape = tuple(o.shape[:-1])
-    g, n_super, aabb8 = exact_cull_layout(scene)
+    if culled:
+        g, n_super, aabb8 = exact_cull_layout(scene)
 
     perm = None
     tiled = False
@@ -216,9 +270,13 @@ def cast_rays_pallas(scene, o, d, sort: bool = False, alive=None):
             rays2, n = tiled_rows(o, d)
         else:
             rays2, _, n = pi.pack_rays(o.reshape(-1, 3), d.reshape(-1, 3))
-        words = pi.cluster_masks_rows(aabb8, rays2, n_super)
+        if culled:
+            words = pi.cluster_masks_rows(aabb8, rays2, n_super)
 
-    out = _sweep_exact(scene, words, rays2, g, n_super)
+    if culled:
+        out = _sweep_exact(scene, words, rays2, g, n_super)
+    else:
+        out = pi.intersect_brute_rows(scene.ptri, rays2)
     t, idx = pi.unpack_hits(out, (n,), n)
 
     if perm is not None:
@@ -243,8 +301,12 @@ def cast_rays_pallas(scene, o, d, sort: bool = False, alive=None):
 def cast_rays(scene, o, d, *, intersector: str = "pallas", sort: bool = False,
               alive=None):
     """Intersector dispatch. "pallas" (and "auto", which the JAX package
-    resolves to "pallas" on an accelerator) is the exact-culled K1/K2 path;
-    the other intersectors are not ported yet."""
+    resolves to "pallas" on an accelerator) is the exact-culled path;
+    "pallas_brute" sweeps every cluster through K3 and, as in the JAX
+    package, ignores sort and alive. The JAX package's "brute" and "bvh"
+    intersectors are not ported."""
     if intersector in ("pallas", "auto"):
         return cast_rays_pallas(scene, o, d, sort=sort, alive=alive)
+    if intersector == "pallas_brute":
+        return cast_rays_pallas(scene, o, d, culled=False)
     raise NotImplementedError(f"intersector {intersector!r} is not ported yet")

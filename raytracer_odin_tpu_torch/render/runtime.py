@@ -23,7 +23,11 @@ import torch
 
 from raytracer_odin_tpu_torch.config import RenderConfig
 from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
-from raytracer_odin_tpu_torch.ops.integrator import TraceOptions, trace
+from raytracer_odin_tpu_torch.ops.integrator import (
+    TraceOptions,
+    compaction_applies,
+    trace,
+)
 from raytracer_odin_tpu_torch.render import accum
 from raytracer_odin_tpu_torch.utils import prng
 from raytracer_odin_tpu_torch.utils.math3d import normalize
@@ -179,7 +183,7 @@ def render_scene(scene, cfg: RenderConfig, fov_x: float, device="cuda",
     samples. on_step(stats, samples_done) runs after every step."""
     dev = _require_device(scene, device)
     lane_schedule = None
-    if cfg.ray_depth > 1:
+    if compaction_applies(_trace_options(cfg)):
         lane_schedule = cfg.compact_schedule
         if cfg.compact == "auto" and lane_schedule is None:
             lane_schedule = auto_lane_schedule(scene, cfg, fov_x,

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (K1-K5) against their plain PyTorch versions, on
+the card.
 
 Every test here carries the `gpu` marker and takes the `cuda` fixture,
 which skips when no CUDA device is present (decided inside the fixture, so
@@ -13,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from raytracer_odin_tpu_torch.ops import culling
+from raytracer_odin_tpu_torch.ops import culling, light_cull
 from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
 from raytracer_odin_tpu_torch.ops import traverse
 
@@ -124,3 +125,86 @@ def test_wrappers_refuse_cpu_cuda_mix(cuda):
     rays = torch.zeros((8, 512), device=cuda)
     with pytest.raises(ValueError):
         pi.cluster_masks_rows(torch.zeros((32, 8)), rays)
+
+
+def _lists(rng, nb, nc, width):
+    counts = rng.integers(0, min(nc, width) + 1, nb).astype(np.int32)
+    counts[::11] = -1
+    counts[5] = 0
+    lists = np.stack([rng.permutation(nc)[:width] for _ in range(nb)])
+    return counts, lists.astype(np.int32)
+
+
+@pytest.mark.gpu
+def test_stream_kernel_bit_equal(cuda):
+    """K4: one list per 512-ray block, overflow blocks sweep everything."""
+    rng = np.random.default_rng(3)
+    tris = _tris(rng, 20_000)
+    nc = tris.shape[0] // pi.LEAF
+    rays = _rays(rng, 65_536, tris).to(cuda)
+    counts, lists = _lists(rng, rays.shape[1] // pi.RB, nc, 256)
+    t = torch.from_numpy(tris).to(cuda)
+    c = torch.from_numpy(counts).to(cuda)
+    lst = torch.from_numpy(lists).to(cuda)
+    before = pi.intersect_stream_rows.launches
+    got = pi.intersect_stream_rows(t, c, lst, rays)
+    want = pi._culled_plain(c, lst, rays, t, pi.RB)
+    torch.cuda.synchronize()
+    assert pi.intersect_stream_rows.launches == before + 1
+    assert int((got[1] >= 0).sum()) > 1000
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_brute_kernel_bit_equal(cuda):
+    """K3 equals its plain version and K4 with every count -1."""
+    rng = np.random.default_rng(4)
+    tris = _tris(rng, 7090)
+    rays = _rays(rng, 32_768, tris).to(cuda)
+    t = torch.from_numpy(tris).to(cuda)
+    before = pi.intersect_brute_rows.launches
+    got = pi.intersect_brute_rows(t, rays)
+    want = pi._brute_plain(rays, t)
+    nb = rays.shape[1] // pi.RB
+    every = pi.intersect_stream_rows(
+        t, torch.full((nb,), -1, dtype=torch.int32, device=cuda),
+        torch.zeros((nb, 1), dtype=torch.int32, device=cuda), rays)
+    torch.cuda.synchronize()
+    assert pi.intersect_brute_rows.launches == before + 1
+    assert int((got[1] >= 0).sum()) > 1000
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), every.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_light_kernel_bit_equal(cuda):
+    """K5: light rows of random small triangles, rays aimed at them, lists
+    with overflow and empty blocks; the per-cluster partial sums in row
+    order make kernel and plain version bit-equal."""
+    rng = np.random.default_rng(5)
+    n = 1700
+    p = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+    u = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+    v = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+    ng = np.cross(u, v)
+    ng /= np.linalg.norm(ng, axis=-1, keepdims=True)
+    fac = (2.0 / np.linalg.norm(np.cross(u, v), axis=-1)).astype(np.float32)
+    rows = light_cull.pack_light_rows(p, u, v, ng, fac)
+    nc = rows.shape[0] // light_cull.LEAF_L
+    lo = rng.uniform(-8, 8, (65_536, 3)).astype(np.float32)
+    d = p[rng.integers(0, n, 65_536)] + 0.3 * u[rng.integers(0, n, 65_536)]
+    d = d - lo
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    r, _, _ = pi.pack_rays(torch.from_numpy(lo), torch.from_numpy(d))
+    counts, lists = _lists(rng, r.shape[1] // pi.RB, nc, 40)
+    lr = torch.from_numpy(rows).to(cuda)
+    c = torch.from_numpy(counts).to(cuda)
+    lst = torch.from_numpy(lists).to(cuda)
+    r = r.to(cuda)
+    before = light_cull.light_sums_rows.launches
+    got = light_cull.light_sums_rows(lr, c, lst, r)
+    want = light_cull._light_sums_plain(c, lst, r, lr)
+    torch.cuda.synchronize()
+    assert light_cull.light_sums_rows.launches == before + 1
+    assert int((got > 0).sum()) > 1000
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -15,9 +15,13 @@ torch.set_num_threads(1)
 
 
 def torch_scene(jax_scene, device="cpu"):
-    """The port's DeviceScene holding the JAX scene's arrays."""
+    """The port's DeviceScene holding the JAX scene's arrays. A streamed
+    JAX scene packs its triangle rows 128 wide; the port keeps their first
+    12 columns and marks the scene streamed."""
     arrays = {f: np.asarray(getattr(jax_scene, f)) for f in TENSOR_FIELDS}
+    stream = arrays["ptri"].shape[1] == 128
+    arrays["ptri"] = arrays["ptri"][:, :12]
     return scene_from_numpy(
         arrays, env_tex=jax_scene.env_tex, row_spec=jax_scene.row_spec,
-        tex_kinds=jax_scene.tex_kinds, device=device,
+        tex_kinds=jax_scene.tex_kinds, stream=stream, device=device,
     )
