@@ -1,0 +1,268 @@
+"""Command-line driver (port of raytracer_odin_tpu/cli.py).
+
+Mirrors the reference CLI (main.odin:174-253): positional input scene and
+output image, plus --debug --times --continious --threads --width --height
+--ray-depth --num-samples --env-map (including the reference's spelling of
+"continious"), and the JAX package's additions: --checkpoint/--resume,
+--layer/--mode output selection, --oracle (render with the numpy reference
+implementation), --seed, --spp-per-step, --intersector, --compact,
+--converge-se, --profile-dir. The flags, their defaults and the config
+resolution are the JAX CLI's. Flags whose paths the port does not have yet
+raise NotImplementedError naming the ROADMAP.md item that brings them.
+
+Run on the card:  python -m raytracer_odin_tpu_torch scene.gltf out.png ...
+From Python:      cli.main([...], device="cpu") renders on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import sys
+import time
+
+import numpy as np
+
+# ROADMAP.md queue A items that bring the flags not ported yet.
+_DEBUG_ITEM = "ROADMAP.md queue A item 1 (the debug surface)"
+_MESH_ITEM = "ROADMAP.md queue A item 2 (multi-GPU sharding)"
+_SCHED_ITEM = "ROADMAP.md queue A item 3 (the other schedulers)"
+
+
+def _layer_arg(v: str) -> int:
+    """--layer takes an index or a layer name; the port has the beauty
+    layer only (probe layers come with the debug surface)."""
+    try:
+        return int(v)
+    except ValueError:
+        if v == "beauty":
+            return 0
+        raise argparse.ArgumentTypeError(
+            f"unknown layer {v!r}; known: beauty")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="raytracer_odin_tpu_torch",
+        description="Wavefront path tracer on an NVIDIA GPU (PyTorch/CUDA)",
+    )
+    p.add_argument("input_file", help="Input scene (glTF/GLB)")
+    p.add_argument("output_file", nargs="?", default="",
+                   help="Output image (.png/.ppm)")
+    p.add_argument("--debug", action="store_true",
+                   help="Debug preview and AOV layers (not ported yet)")
+    p.add_argument("--times", type=int, default=0,
+                   help="Number of times to render the scene (benchmark "
+                        "trials)")
+    p.add_argument("--continious", action="store_true",
+                   help="Ignore sample limit and render until interrupted")
+    p.add_argument("--threads", type=int, default=0,
+                   help="Accepted for parity and ignored")
+    p.add_argument("--width", type=int, default=0,
+                   help="Width of the output image")
+    p.add_argument("--height", type=int, default=0,
+                   help="Height of the output image")
+    p.add_argument("--ray-depth", type=int, default=0,
+                   help="Max depth of rays")
+    p.add_argument("--num-samples", type=int, default=0,
+                   help="Samples per pixel")
+    p.add_argument("--env-map", default="", help="Environment map file")
+    p.add_argument("--seed", type=int, default=0, help="Render seed")
+    p.add_argument("--spp-per-step", type=int, default=0,
+                   help="Samples per device step (default: auto)")
+    p.add_argument("--devices", type=int, default=0,
+                   help="Image-tile devices (one; more are not ported yet)")
+    p.add_argument("--spp-devices", type=int, default=1,
+                   help="Sample-sharding devices (one; more are not ported "
+                        "yet)")
+    p.add_argument("--intersector",
+                   choices=["auto", "bvh", "brute", "pallas",
+                            "pallas_brute"],
+                   default="auto")
+    p.add_argument("--pool", action="store_true",
+                   help="Persistent wavefront pool (not ported yet)")
+    p.add_argument("--pool-fraction", type=float, default=0.5)
+    p.add_argument("--compact", choices=["auto", "off", "refill"],
+                   default="auto",
+                   help="Dead-lane scheduling: 'auto' slices the sorted "
+                        "wavefront to calibrated per-bounce lane budgets "
+                        "(overflow triggers an uncompacted re-render); "
+                        "'off' keeps full-width lanes; 'refill' is not "
+                        "ported yet")
+    p.add_argument("--layer", type=_layer_arg, default=0,
+                   help="Output layer: 0 or beauty (AOV layers are not "
+                        "ported yet)")
+    p.add_argument("--mode", default="mean",
+                   choices=["mean", "variance", "first", "last", "count",
+                            "weight", "hash", "naninf"])
+    p.add_argument("--preview-port", type=int, default=0,
+                   help="Live HTTP preview (not ported yet)")
+    p.add_argument("--preview-file", default="",
+                   help="Periodic snapshot file (not ported yet)")
+    p.add_argument("--preview-every", type=float, default=2.0,
+                   help="Snapshot period in seconds")
+    p.add_argument("--converge-se", type=float, default=0.0,
+                   help="With --continious: stop when the MEDIAN per-pixel "
+                        "standard error of the beauty mean drops below this "
+                        "(median, not mean: firefly samples make the mean SE "
+                        "non-convergent)")
+    p.add_argument("--checkpoint", default="",
+                   help="Checkpoint file; saved periodically and on exit")
+    p.add_argument("--resume", action="store_true",
+                   help="Resume accumulation from --checkpoint")
+    p.add_argument("--oracle", action="store_true",
+                   help="Render with the independent numpy reference "
+                        "implementation")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="NaN-origin tracing (not ported yet)")
+    p.add_argument("--profile-dir", default="",
+                   help="Write a torch.profiler Chrome trace into this dir")
+    p.add_argument("--quiet", action="store_true")
+    return p
+
+
+def _refuse_unported(args) -> None:
+    """Raise for every flag whose path the port does not have yet."""
+    unported = [
+        (args.debug, "--debug", _DEBUG_ITEM),
+        (args.layer != 0, "--layer other than 0", _DEBUG_ITEM),
+        (args.preview_port or args.preview_file, "--preview-port/--preview-file",
+         _DEBUG_ITEM),
+        (args.debug_nans, "--debug-nans", _DEBUG_ITEM),
+        (args.devices > 1 or args.spp_devices > 1,
+         "--devices/--spp-devices above 1", _MESH_ITEM),
+        (args.pool, "--pool", _SCHED_ITEM),
+        (args.compact == "refill", "--compact refill", _SCHED_ITEM),
+    ]
+    for used, flag, item in unported:
+        if used:
+            raise NotImplementedError(
+                f"{flag} is not ported to raytracer_odin_tpu_torch yet: "
+                f"{item}")
+
+
+def main(argv=None, device="cuda") -> int:
+    """Run the CLI on `argv` (sys.argv by default). Everything runs on
+    `device`: the card unless the caller asks for "cpu"."""
+    args = build_parser().parse_args(argv)
+    _refuse_unported(args)
+    log = (lambda *a: None) if args.quiet else print
+
+    from raytracer_odin_tpu_torch.config import RenderConfig
+    from raytracer_odin_tpu_torch.io import gltf, images, writers
+    from raytracer_odin_tpu_torch.models import build as build_mod
+    from raytracer_odin_tpu_torch.models.scene import HostTexture
+    from raytracer_odin_tpu_torch.render import output
+
+    t0 = time.perf_counter()
+    host = gltf.read_gltf(args.input_file)
+    log(f"Scene loaded: {host.num_triangles} triangles, "
+        f"{len(host.materials)} materials, {len(host.textures)} textures "
+        f"({time.perf_counter() - t0:.2f}s)")
+
+    env_tex = None
+    if args.env_map:
+        li = images.load_image(args.env_map)
+        env_tex = HostTexture(li.data, li.is_hdr)
+
+    # Config resolution (defaults applied like main.odin:199-212).
+    width = args.width or 512
+    height = args.height or 512
+    fov_x = host.cam.fov_x
+    if args.height:
+        fov_x *= width / height
+    elif width != height:
+        fov_x *= width / height
+    depth = args.ray_depth or 8
+    samples = args.num_samples or 64
+
+    spp_step = args.spp_per_step
+    if spp_step <= 0:
+        # Auto: keep device steps short; divide the sample count evenly.
+        spp_step = 4
+        while samples % spp_step:
+            spp_step -= 1
+    cfg = RenderConfig(
+        width=width, height=height, ray_depth=depth, samples=samples,
+        continuous=args.continious, samples_per_step=spp_step,
+        seed=args.seed, intersector=args.intersector, compact=args.compact,
+    )
+
+    scene = build_mod.finish_scene(host, env_map=env_tex,
+                                   verbose=not args.quiet, device=device)
+
+    if args.oracle:
+        from raytracer_odin_tpu_torch.oracle import cpu_reference as oracle
+
+        t0 = time.perf_counter()
+        img = oracle.render(scene, width, height, fov_x, depth, samples,
+                            seed=args.seed)
+        log(f"Oracle rendered in {time.perf_counter() - t0:.2f}s")
+        rgb = output.tone_map_aces(np.maximum(np.nan_to_num(img), 0))
+        rgb = np.clip(np.round(rgb ** (1 / 2.2) * 255), 0, 255).astype(
+            np.uint8)
+        if args.output_file:
+            writers.save_image(args.output_file, rgb)
+            log(f"Saved {args.output_file}")
+        return 0
+
+    from raytracer_odin_tpu_torch.render import accum, checkpoint, runtime
+    from raytracer_odin_tpu_torch.utils import profiling
+
+    initial_stats = None
+    initial_samples = 0
+    if args.resume and args.checkpoint and checkpoint.exists(args.checkpoint):
+        initial_stats, initial_samples, _ = checkpoint.load(
+            args.checkpoint, device=device)
+        log(f"Resumed {initial_samples} samples from {args.checkpoint}")
+
+    hooks = []
+    ckpt_state = {"last": time.time()}
+    if args.checkpoint:
+        def ckpt_hook(stats, samples_done):
+            now = time.time()
+            if now - ckpt_state["last"] > 30:
+                ckpt_state["last"] = now
+                checkpoint.save(args.checkpoint, stats, samples_done)
+        hooks.append(ckpt_hook)
+
+    def on_step(stats, samples_done):
+        stats = accum.crop(stats, height, width)
+        for h in hooks:
+            h(stats, samples_done)
+
+    trials = args.times if args.times > 0 else 1
+    prof = (profiling.trace(args.profile_dir, device)
+            if args.profile_dir else contextlib.nullcontext())
+    interrupt = runtime.InterruptFlag().install()
+    try:
+        with prof:
+            res = runtime.render_scene(
+                scene, cfg, fov_x, device=device, trials=trials,
+                interrupt=interrupt, on_step=on_step if hooks else None,
+                initial_stats=initial_stats, initial_samples=initial_samples,
+                verbose=not args.quiet, converge_se=args.converge_se,
+            )
+    finally:
+        interrupt.uninstall()
+    res.stats = accum.crop(res.stats, height, width)
+    if not args.quiet and res.trial_seconds:
+        # Measured path segments (dead lanes not credited), not
+        # depth * pixels.
+        mrays = res.rays_cast / max(sum(res.trial_seconds), 1e-9) / 1e6
+        print(f"Throughput: {mrays:.2f} Mrays/s "
+              f"({res.rays_cast / 1e6:.1f}M rays cast)")
+
+    if args.checkpoint:
+        checkpoint.save(args.checkpoint, res.stats, res.samples_done)
+        log(f"Checkpoint saved to {args.checkpoint}")
+
+    if args.output_file:
+        img = output.layer_to_rgb(res.stats, args.layer, args.mode)
+        writers.save_image(args.output_file, img)
+        log(f"Saved {args.output_file} ({res.samples_done} spp)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,9 +5,8 @@ raytracer_odin_tpu/models/build.py).
 Morton-ordered light list and its packed light-cluster rows, order the
 triangles by the BVH permutation, pack the texture atlas, the 12-wide
 kernel triangle rows, the cluster AABBs and the scene-specialised shade
-rows, decide whether the scene is streamed, and upload them as a torch
-DeviceScene. The device BVH arrays (BVH intersector only) are not built
-yet.
+rows and the flattened BVH, decide whether the scene is streamed, and
+upload them as a torch DeviceScene.
 """
 
 from __future__ import annotations
@@ -35,8 +34,9 @@ EMISSIVE_EPS = 1e-6  # raytracer.odin:64
 def scene_arrays(host: HostScene, env_map: HostTexture | None = None,
                  verbose: bool = False):
     """Host-side half of finish_scene: (arrays, statics) with `arrays` the
-    numpy array of every DeviceScene tensor field and `statics` its
-    env_tex, row_spec, tex_kinds and stream."""
+    numpy array of every DeviceScene tensor field (and under "bvh" the
+    flattened BVH's arrays) and `statics` its env_tex, row_spec, tex_kinds
+    and stream."""
     n_tri = host.num_triangles
 
     # Emissive-material mask per triangle (raytracer.odin:63-66).
@@ -191,6 +191,9 @@ def scene_arrays(host: HostScene, env_map: HostTexture | None = None,
         "ptri": ptri, "cluster_lo": cl_lo, "cluster_hi": cl_hi,
         "shade_row": shade_row,
         "cam_pos": host.cam.pos, "cam_basis": host.cam.basis,
+        "bvh": {"lo": flat.lo, "hi": flat.hi, "first": flat.first,
+                "count": flat.count, "hit_link": flat.hit_link,
+                "miss_link": flat.miss_link},
     }
     statics = {"env_tex": env_tex_id, "row_spec": row_spec,
                "tex_kinds": tex_kinds,

@@ -9,9 +9,8 @@ JAX package does:
     dataclasses are copied unchanged.
   * ``DeviceScene`` — a dataclass of SoA torch tensors on one device:
     triangle soup, material table, one flat texture atlas, light list, and
-    the Pallas-layout arrays the intersection and light kernels read. The
-    device BVH fields (read only by the BVH intersector) are not ported
-    yet.
+    the Pallas-layout arrays the intersection and light kernels read, and
+    the flattened BVH (``DeviceBVH``) that the BVH intersector walks.
 
 Triangle parameterization matches the reference exactly: p + u*b1 + v*b2 with
 u = p2-p1, v = p3-p1 (input.odin:209-224), shading normals n1..n3, texcoords
@@ -107,6 +106,25 @@ class HostScene:
 
 
 @dataclass
+class DeviceBVH:
+    """Flattened stackless BVH (built by ops/bvh.py). Traversal state is
+    just a node index; per ray-direction octant links give near-child-first
+    order. Node 0 is the root; a link equal to the node count ends the
+    walk."""
+
+    lo: Any          # [B, 3] f32
+    hi: Any          # [B, 3] f32
+    first: Any       # [B] i32: a leaf's first triangle (BVH order)
+    count: Any       # [B] i32: a leaf's triangle count (0 for a branch)
+    hit_link: Any    # [8, B] i32
+    miss_link: Any   # [8, B] i32
+
+
+BVH_FIELDS = ("lo", "hi", "first", "count", "hit_link", "miss_link")
+_BVH_INT_FIELDS = ("first", "count", "hit_link", "miss_link")
+
+
+@dataclass
 class DeviceScene:
     """Device-resident SoA scene (torch tensors on one device). Field
     meanings and layouts are those of the JAX package's DeviceScene; the
@@ -155,6 +173,8 @@ class DeviceScene:
     shade_row: Any            # [T, RW] f32
     cam_pos: Any              # [3]
     cam_basis: Any            # [3, 3]
+    # Flattened BVH over the triangles (the "bvh" intersector).
+    bvh: DeviceBVH
     env_tex: int = -1
     row_spec: tuple = ()
     tex_kinds: tuple = (False, False, False, False)
@@ -180,7 +200,7 @@ _INT_FIELDS = ("tri_mat", "mat_tex", "tex_offset", "tex_width", "tex_height")
 _STATIC_FIELDS = ("env_tex", "row_spec", "tex_kinds", "stream")
 TENSOR_FIELDS = tuple(
     f.name for f in dataclasses.fields(DeviceScene)
-    if f.name not in _STATIC_FIELDS
+    if f.name not in _STATIC_FIELDS + ("bvh",)
 )
 
 
@@ -188,16 +208,22 @@ def scene_from_numpy(arrays: dict, *, env_tex: int, row_spec: tuple,
                      tex_kinds: tuple, stream: bool = False,
                      device="cuda") -> DeviceScene:
     """Build a DeviceScene on `device` from numpy arrays keyed by field
-    name (every name in TENSOR_FIELDS). The arrays may come from this
-    package's finish_scene or from the JAX package's DeviceScene, so both
-    renderers can be fed one and the same scene (the JAX package's
+    name (every name in TENSOR_FIELDS), and the BVH from `arrays["bvh"]`,
+    a dict of numpy arrays keyed by BVH_FIELDS. The arrays may come from
+    this package's finish_scene or from the JAX package's DeviceScene, so
+    both renderers can be fed one and the same scene (the JAX package's
     streamed `ptri` is 128 wide: pass its first 12 columns)."""
     dev = torch.device(device)
-    kw = {}
-    for name in TENSOR_FIELDS:
-        dtype = torch.int32 if name in _INT_FIELDS else torch.float32
-        kw[name] = torch.tensor(np.asarray(arrays[name]), dtype=dtype,
-                                device=dev)
+
+    def put(a, is_int):
+        return torch.tensor(np.asarray(a), device=dev,
+                            dtype=torch.int32 if is_int else torch.float32)
+
+    kw = {name: put(arrays[name], name in _INT_FIELDS)
+          for name in TENSOR_FIELDS}
+    kw["bvh"] = DeviceBVH(**{name: put(arrays["bvh"][name],
+                                       name in _BVH_INT_FIELDS)
+                             for name in BVH_FIELDS})
     return DeviceScene(**kw, env_tex=int(env_tex), row_spec=tuple(row_spec),
                        tex_kinds=tuple(bool(k) for k in tex_kinds),
                        stream=bool(stream))

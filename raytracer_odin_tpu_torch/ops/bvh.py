@@ -2,12 +2,13 @@
 
 Build semantics follow the reference (bvh_build, raytracer.odin:227-342):
 full SAH sweep, leaf threshold 4. The build runs in the port's own copy of
-the native builder (csrc/rtnative.cpp `bvh_build`). Only its triangle
-permutation is used so far: it orders the triangles into spatially tight
-64-triangle clusters for the intersection kernels. There is deliberately no
-numpy fallback: the JAX package's `_build_py` yields a different
-permutation than the native builder on the demo scene, so a fallback would
-silently change every cluster.
+the native builder (csrc/rtnative.cpp `bvh_build`). Its triangle
+permutation orders the triangles into spatially tight 64-triangle clusters
+for the intersection kernels; its flattened nodes and per-octant links are
+uploaded as the DeviceBVH the "bvh" intersector walks. There is
+deliberately no numpy fallback: the JAX package's `_build_py` yields a
+different permutation than the native builder on the demo scene, so a
+fallback would silently change every cluster.
 """
 
 from __future__ import annotations

@@ -69,7 +69,7 @@ def load() -> ctypes.CDLL:
             build()
         lib = ctypes.CDLL(str(_SO))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rt_mask_launch.argtypes = [p, p, p, i, i, i, i, p]
+        lib.rt_mask_launch.argtypes = [p, p, p, i, i, i, i, i, p]
         lib.rt_mask_launch.restype = i
         for name in ("rt_culled_launch", "rt_stream_launch",
                      "rt_light_launch"):

@@ -33,6 +33,10 @@ from raytracer_odin_tpu_torch.utils.math3d import cross, dot, norm_l1, normalize
 class TraceOptions(NamedTuple):
     depth: int = 8
     intersector: str = "pallas"
+    # The "brute" intersector's triangles per chunk, and the triangle count
+    # up to which "auto" means "brute" on the CPU (traverse.cast_rays).
+    brute_chunk: int = 512
+    brute_max_tris: int = 512
     # Dead-lane compaction: static lane budgets for bounces 1..depth-1
     # (runtime.auto_lane_schedule). Lanes beyond a budget that are still
     # alive are counted in aux["overflow"]: the render is then invalid and
@@ -223,7 +227,7 @@ def trace(scene, o, d, key, sample, opts: TraceOptions):
     ([depth] live lanes entering each bounce)."""
     batch_shape = tuple(o.shape[:-1])
     dev = o.device
-    if opts.lane_schedule is not None and compaction_applies(opts):
+    if opts.lane_schedule is not None and compaction_applies(opts, dev):
         return _trace_compacted(scene, o, d, key, sample, opts)
 
     n_lanes = 1
@@ -245,7 +249,8 @@ def trace(scene, o, d, key, sample, opts: TraceOptions):
         # Camera rays are tile-coherent; later bounces are re-bucketed.
         t, tri_idx = traverse.cast_rays(
             scene, o, d, intersector=opts.intersector,
-            sort=b > 0, alive=alive,
+            brute_chunk=opts.brute_chunk,
+            brute_max_tris=opts.brute_max_tris, sort=b > 0, alive=alive,
         )
         uniforms = prng.uniforms(key, sample, b, stream_ids, 6)
         o, d, throughput, radiance, alive = _shade_vertex(
@@ -262,12 +267,18 @@ def trace(scene, o, d, key, sample, opts: TraceOptions):
     return radiance, aux
 
 
-def compaction_applies(opts: TraceOptions) -> bool:
+def compaction_applies(opts: TraceOptions, device) -> bool:
     """Dead-lane compaction needs depth > 1 and the exact-culled sorted
-    cast ("pallas", or "auto", which resolves to it); the brute sweep
-    ("pallas_brute") always runs uncompacted, as in the JAX package
+    cast: "pallas", or "auto" on the card, where it resolves to "pallas".
+    "auto" on the CPU ("brute" or "bvh"), "pallas_brute", "brute" and
+    "bvh" run uncompacted, as in the JAX package
     (integrator._compaction_applies)."""
-    return opts.depth > 1 and opts.intersector in ("pallas", "auto")
+    if opts.depth <= 1:
+        return False
+    if opts.intersector == "pallas":
+        return True
+    return (opts.intersector == "auto"
+            and torch.device(device).type != "cpu")
 
 
 def first_bounce(scene, o, d, key, sample):

@@ -4,8 +4,8 @@ The JAX module holds the Pallas TPU kernels; this module holds their
 Hopper replacements, written by hand in CUDA (csrc/intersect_kernels.cu),
 next to a plain PyTorch version of each:
 
-  * K1 `cluster_masks_rows` — exact per-ray cluster masks, bit-packed
-    (replaces `_mask_kernel`).
+  * K1 `cluster_masks_rows` — exact per-ray cluster masks, bit-packed,
+    optionally bounded by a per-ray tmax (replaces `_mask_kernel`).
   * K2 `intersect_culled_rows` — list-driven Moller-Trumbore sweep of each
     RB_SUB-ray sub-block's cluster list (replaces `_culled_kernel`).
   * K3 `intersect_brute_rows` — every RB-ray block against every cluster
@@ -118,7 +118,7 @@ def _stream_of(device) -> int:
 # K1: exact per-ray cluster masks.
 # ---------------------------------------------------------------------------
 
-def _cluster_masks_plain(aabb8, rays, n_bits: int):
+def _cluster_masks_plain(aabb8, rays, n_bits: int, tmax_row: bool = False):
     """Plain PyTorch version of K1: the same slab test, rays in chunks."""
     n_words = aabb8.shape[0] // 32
     npad = rays.shape[1]
@@ -150,6 +150,8 @@ def _cluster_masks_plain(aabb8, rays, n_bits: int):
             near = torch.maximum(torch.maximum(tn[:, 0], tn[:, 1]), tn[:, 2])
             far = torch.minimum(torch.minimum(tx[:, 0], tx[:, 1]), tx[:, 2])
             hit = (near <= far) & (far >= 0)          # [32, n]
+            if tmax_row:
+                hit = hit & (near <= rays[6, s:e][None])
             word = torch.where(hit, bits[:, None], 0).sum(dim=0)
             used = n_bits - w * 32
             if used <= 0:
@@ -160,12 +162,20 @@ def _cluster_masks_plain(aabb8, rays, n_bits: int):
     return out
 
 
-def cluster_masks_rows(aabb8, rays, n_clusters: int | None = None):
+def cluster_masks_rows(aabb8, rays, n_clusters: int | None = None,
+                       tmax_row: bool = False):
     """Exact per-ray cluster masks (K1). aabb8 [S_pad, 8] f32 (S_pad % 32
     == 0; pad rows (BIG, -BIG)), rays [8, Npad] f32 rows. Returns [W, Npad]
     int32 words, W = S_pad // 32: bit c % 32 of word c // 32 is the slab hit
     of cluster c. With n_clusters set, bits >= n_clusters are zeroed (the
-    sort-key header fold and dead-lane compaction require it)."""
+    sort-key header fold and dead-lane compaction require it).
+
+    tmax_row=True reads a per-ray bound from ray row 6 and adds
+    `near <= tmax` to the hit test: a cluster whose slab entry lies beyond
+    a hit already found holds no nearer one (two-phase culling's second
+    pass, traverse._two_phase_exact). A NaN entry or bound clears the bit.
+    Launches are counted in `launches`, those with tmax_row in
+    `tmax_launches`."""
     dev = rays.device
     _check("rays", rays, torch.float32, 2, dev)
     _check("aabb8", aabb8, torch.float32, 2, dev)
@@ -175,7 +185,7 @@ def cluster_masks_rows(aabb8, rays, n_clusters: int | None = None):
     n_words = s_pad // 32
     n_bits = s_pad if n_clusters is None else int(n_clusters)
     if dev.type == "cpu":
-        return _cluster_masks_plain(aabb8, rays, n_bits)
+        return _cluster_masks_plain(aabb8, rays, n_bits, tmax_row)
     if dev.type != "cuda":
         raise ValueError(f"cluster_masks_rows: unsupported device {dev}")
     if s_pad * 6 * 4 > 48 * 1024:
@@ -188,15 +198,19 @@ def cluster_masks_rows(aabb8, rays, n_clusters: int | None = None):
         return out
     rc = cuda_build.load().rt_mask_launch(
         rays.data_ptr(), aabb8.data_ptr(), out.data_ptr(),
-        npad, s_pad, n_words, n_bits, _stream_of(dev),
+        npad, s_pad, n_words, n_bits, int(tmax_row), _stream_of(dev),
     )
     if rc != 0:
         raise RuntimeError(f"mask kernel launch failed: cudaError {rc}")
-    cluster_masks_rows.launches += 1
+    if tmax_row:
+        cluster_masks_rows.tmax_launches += 1
+    else:
+        cluster_masks_rows.launches += 1
     return out
 
 
 cluster_masks_rows.launches = 0
+cluster_masks_rows.tmax_launches = 0
 
 
 # ---------------------------------------------------------------------------

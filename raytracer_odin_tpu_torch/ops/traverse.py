@@ -1,29 +1,57 @@
-"""Nearest-hit ray casting through the intersection kernels (port of the
-Pallas path of raytracer_odin_tpu/ops/traverse.py).
+"""Nearest-hit ray casting (port of raytracer_odin_tpu/ops/traverse.py).
 
 Every cast follows `cast_ray` semantics (raytracer.odin:416-430): the
 origin is pushed forward by RAY_EPS along the direction, the nearest hit
 with t > 0 wins, and RAY_EPS is added back to the returned t (BIG on a
-miss). Culling is exact: K1 gives each ray its (super-)cluster mask, the
-masks are OR-ed per list block into cluster lists, and K2 (resident
-scenes) or K4 (streamed scenes) sweeps them. Scenes above
-MAX_EXACT_CLUSTERS clusters take the two-level layout: mask bits cover
-super-clusters of g consecutive clusters, refined per block by the
-conservative interval cull. `intersector="pallas_brute"` sweeps every
-cluster through K3 instead. Not ported: two-phase culling (TWO_PHASE_K)
-and the JAX package's brute and BVH intersectors.
+miss). Four intersectors:
+
+  * "pallas" — exact culling through the kernels: K1 gives each ray its
+    (super-)cluster mask, the masks are OR-ed per list block into cluster
+    lists, and K2 (resident scenes) or K4 (streamed scenes) sweeps them.
+    Scenes above MAX_EXACT_CLUSTERS clusters take the two-level layout:
+    mask bits cover super-clusters of g consecutive clusters, refined per
+    block by the conservative interval cull. With TWO_PHASE_K > 0 a
+    presorted cast of a resident one-level scene culls in two phases
+    (_two_phase_exact).
+  * "pallas_brute" — every cluster for every ray through K3.
+  * "brute" — the chunked all-rays x all-triangles sweep
+    (cast_ray_through_trigs, raytracer.odin:351-369), plain torch.
+  * "bvh" — the stackless walk over the flattened BVH's per-octant hit/miss
+    links (cast_ray_through_bvh, raytracer.odin:371-414), plain torch.
+
+"auto" picks by the device the rays live on, as the JAX package picks by
+its backend: "pallas" on the card; on the CPU "brute" up to brute_max_tris
+triangles and "bvh" above.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
 from raytracer_odin_tpu_torch.ops import culling
 from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
-from raytracer_odin_tpu_torch.ops.geometry import BIG, RAY_EPS
+from raytracer_odin_tpu_torch.ops.bvh import LEAF_SIZE
+from raytracer_odin_tpu_torch.ops.geometry import (
+    BIG,
+    RAY_EPS,
+    intersect_aabb,
+    intersect_triangle,
+)
 
 # Exact per-ray culling works on at most this many mask bits.
 MAX_EXACT_CLUSTERS = 256
+
+# Two-phase t-bounded culling of presorted exact-mask casts (0 = off), read
+# from the JAX package's own switch: phase A sweeps each block's K nearest
+# listed clusters, then every cluster whose per-ray slab entry lies beyond
+# the hit found is pruned, and phase B sweeps the rest.
+TWO_PHASE_K = int(os.environ.get("RT_TPU_TWO_PHASE", 0))
+
+# Brute sweep working set: rays per chunk are chosen so that one [rays,
+# brute_chunk] intermediate holds at most this many elements.
+_BRUTE_ELEMS = 1 << 22
 
 
 def _ray_octant(d):
@@ -182,16 +210,74 @@ def tiled_rows(o, d):
     return rays, n
 
 
+def swept_words(lists, counts, n_words: int):
+    """The clusters a sweep of (counts, lists [NB, k]) tests, every count
+    at most k, as mask words per block [n_words, NB] i32. A list holds each
+    id once, so adding the bits of a block's first counts entries sets each
+    bit once: the sum is their OR, and no carry crosses a bit."""
+    dev = lists.device
+    use = torch.arange(lists.shape[1], device=dev) < counts[:, None]
+    bit = torch.where(
+        use, torch.bitwise_left_shift(torch.ones_like(lists), lists % 32), 0)
+    word = torch.arange(n_words, dtype=lists.dtype, device=dev)
+    return torch.where((lists // 32)[None] == word[:, None, None], bit[None],
+                       0).sum(dim=-1, dtype=torch.int32)
+
+
+def _two_phase_exact(scene, rays, words, n_super: int, aabb8,
+                     cap: int = 256):
+    """Two-phase t-bounded exact culling (TWO_PHASE_K; one-level resident
+    scenes). Phase A sweeps each block's K nearest listed clusters through
+    K2; its t rides ray row 6 into K1 with tmax_row, which prunes every
+    cluster entered beyond the hit found; the clusters phase A swept are
+    cleared for the whole block (phase A tested them for every lane of
+    it), and phase B sweeps the rest through K2. Returns the [8, N] kernel
+    output rows.
+
+    Tie rule: lists are nearest-first, equal entry distances by ascending
+    id (culling.build_lists; the JAX package's unstable sort leaves that
+    order open), and the merge keeps phase A unless phase B's t is strictly
+    smaller. So among equal-t hits phase A's cluster wins, and a hit index
+    can differ from the single sweep's (ascending ids) only at exact-t
+    ties."""
+    k = TWO_PHASE_K
+    lb = pi.list_block(scene)
+    smask = culling.unpack_mask(culling.or_blocks_packed(words, lb), n_super)
+    _, near = culling.cull_clusters(
+        *culling.block_bounds_rows(rays, lb), scene.cluster_lo,
+        scene.cluster_hi,
+    )
+    counts, lists = culling.build_lists(smask, cap=cap, near=near)
+    counts_a = torch.where(counts < 0, k, torch.clamp(counts, max=k))
+    out_a = pi.intersect_culled_rows(scene.ptri, counts_a, lists, rays)
+
+    rays_b = rays.clone()
+    rays_b[6] = out_a[0]
+    words_b = pi.cluster_masks_rows(aabb8, rays_b, n_super, tmax_row=True)
+    tested = swept_words(lists[:, :k], counts_a, words_b.shape[0])
+    words_b &= ~tested.repeat_interleave(lb, dim=1)
+    counts_b, lists_b = culling.build_lists(
+        culling.unpack_mask(culling.or_blocks_packed(words_b, lb), n_super),
+        cap=cap, near=near,
+    )
+    out_b = pi.intersect_culled_rows(scene.ptri, counts_b, lists_b, rays)
+    return torch.where(out_b[0:1] < out_a[0:1], out_b, out_a)
+
+
 def cast_presorted_rows(scene, rays, words):
     """Nearest hit for rays already packed as [8, N] kernel rows WITH the
     RAY_EPS offset applied (N % RB == 0), coherence-sorted by the caller,
     with their [W, N] exact masks. Returns (t, idx) flat [N] in the given
     lane order. The kernels return only the hit decision (the JAX
     package's zero bu/bv are not carried: barycentrics are recomputed at
-    shade time)."""
+    shade time). With TWO_PHASE_K > 0 a one-level resident scene culls in
+    two phases."""
     n = rays.shape[1]
-    g, n_super, _ = exact_cull_layout(scene)
-    out = _sweep_exact(scene, words, rays, g, n_super)
+    g, n_super, aabb8 = exact_cull_layout(scene)
+    if TWO_PHASE_K > 0 and g == 1 and not scene.stream:
+        out = _two_phase_exact(scene, rays, words, n_super, aabb8)
+    else:
+        out = _sweep_exact(scene, words, rays, g, n_super)
     t, idx = pi.unpack_hits(out, (n,), n)
     return torch.where(idx >= 0, t + RAY_EPS, BIG), idx
 
@@ -298,15 +384,124 @@ def cast_rays_pallas(scene, o, d, culled: bool = True, sort: bool = False,
     return torch.where(idx >= 0, t + RAY_EPS, BIG), idx
 
 
-def cast_rays(scene, o, d, *, intersector: str = "pallas", sort: bool = False,
-              alive=None):
-    """Intersector dispatch. "pallas" (and "auto", which the JAX package
-    resolves to "pallas" on an accelerator) is the exact-culled path;
-    "pallas_brute" sweeps every cluster through K3 and, as in the JAX
-    package, ignores sort and alive. The JAX package's "brute" and "bvh"
-    intersectors are not ported."""
-    if intersector in ("pallas", "auto"):
+def cast_rays_brute(scene, o, d, chunk: int = 512):
+    """Nearest hit over every triangle, `chunk` triangles at a time (the
+    JAX package's cast_rays_brute). Within a chunk the first minimum wins
+    (torch.argmin, as jnp.argmin); across chunks only a strictly smaller t
+    replaces. Rays are processed in groups that keep one [rays, chunk]
+    intermediate near _BRUTE_ELEMS elements; each ray's result does not
+    depend on the grouping. Returns (t, idx int32) in the batch shape; t
+    includes the RAY_EPS re-add, BIG and -1 on a miss."""
+    n_tri = scene.tri_p.shape[0]
+    o = o + d * RAY_EPS
+    batch_shape = tuple(o.shape[:-1])
+    o2 = o.reshape(-1, 3)
+    d2 = d.reshape(-1, 3)
+    n = o2.shape[0]
+    dev = o.device
+    chunk = min(chunk, max(n_tri, 1))
+    best_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    best_i = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    group = max(1, _BRUTE_ELEMS // chunk)
+    for a in range(0, n_tri, chunk):
+        b = min(n_tri, a + chunk)
+        p, u, v = scene.tri_p[a:b], scene.tri_u[a:b], scene.tri_v[a:b]
+        for r0 in range(0, n, group):
+            r1 = min(n, r0 + group)
+            bt = best_t[r0:r1]
+            t, _, _, ok = intersect_triangle(
+                o2[r0:r1, None, :], d2[r0:r1, None, :], p, u, v)
+            ok = ok & (t > 0) & (t < bt[:, None])
+            t = torch.where(ok, t, BIG)
+            kmin = torch.argmin(t, dim=-1)
+            tk = torch.gather(t, 1, kmin[:, None])[:, 0]
+            better = tk < bt
+            best_i[r0:r1] = torch.where(better, (a + kmin).to(torch.int32),
+                                        best_i[r0:r1])
+            best_t[r0:r1] = torch.where(better, tk, bt)
+    t = torch.where(best_i >= 0, best_t + RAY_EPS, BIG)
+    return t.reshape(batch_shape), best_i.reshape(batch_shape)
+
+
+def cast_rays_bvh(scene, o, d):
+    """Stackless BVH walk (the JAX package's cast_rays_bvh): every ray
+    follows its own node chain through the per-octant hit/miss links; a
+    leaf whose box is hit tests its (<= LEAF_SIZE) triangles, a strictly
+    smaller t replacing. The loop runs while any lane is active; each step
+    works on the active lanes only (their index list shrinks as lanes end),
+    which changes no lane's result. Returns (t, idx int32) as
+    cast_rays_brute."""
+    bvh = scene.bvh
+    n_nodes = bvh.lo.shape[0]
+    n_tri = scene.tri_p.shape[0]
+    o = o + d * RAY_EPS
+    batch_shape = tuple(o.shape[:-1])
+    o = o.reshape(-1, 3)
+    d = d.reshape(-1, 3)
+    dev = o.device
+    inv_d = 1.0 / d
+    hit_link = bvh.hit_link.reshape(-1)
+    miss_link = bvh.miss_link.reshape(-1)
+    oct_base = _ray_octant(d).long() * n_nodes
+    node = torch.zeros(o.shape[0], dtype=torch.int32, device=dev)
+    best_t = torch.full((o.shape[0],), BIG, dtype=torch.float32, device=dev)
+    best_i = torch.full((o.shape[0],), -1, dtype=torch.int32, device=dev)
+    live = torch.arange(o.shape[0], device=dev)  # lanes with node < n_nodes
+    while live.numel() > 0:
+        nidx = node[live].long()
+        lo, lt, ld = o[live], best_t[live], d[live]
+        bi = best_i[live]
+        _, box_hit = intersect_aabb(lo, inv_d[live], bvh.lo[nidx],
+                                    bvh.hi[nidx], lt)
+        first = bvh.first[nidx]
+        count = bvh.count[nidx]
+        do_tris = box_hit & (count > 0)
+        for k in range(LEAF_SIZE):
+            ti = torch.clamp(first + k, max=n_tri - 1)
+            tl = ti.long()
+            t, _, _, ok = intersect_triangle(
+                lo, ld, scene.tri_p[tl], scene.tri_u[tl], scene.tri_v[tl])
+            ok = ok & do_tris & (k < count) & (t > 0) & (t < lt)
+            lt = torch.where(ok, t, lt)
+            bi = torch.where(ok, ti, bi)
+        best_t[live] = lt
+        best_i[live] = bi
+        links = oct_base[live] + nidx
+        nxt = torch.where(box_hit, hit_link[links], miss_link[links])
+        node[live] = nxt
+        live = live[nxt < n_nodes]
+    t = torch.where(best_i >= 0, best_t + RAY_EPS, BIG)
+    return t.reshape(batch_shape), best_i.reshape(batch_shape)
+
+
+def resolve_intersector(intersector: str, n_tri: int, device,
+                        brute_max_tris: int = 512) -> str:
+    """The intersector "auto" stands for on `device`: "pallas" on the
+    card; on the CPU "brute" up to brute_max_tris triangles, else "bvh"
+    (the JAX package decides the same by its backend). Other names are
+    returned as they are."""
+    if intersector != "auto":
+        return intersector
+    if torch.device(device).type == "cpu":
+        return "brute" if n_tri <= brute_max_tris else "bvh"
+    return "pallas"
+
+
+def cast_rays(scene, o, d, *, intersector: str = "auto",
+              brute_chunk: int = 512, brute_max_tris: int = 512,
+              sort: bool = False, alive=None):
+    """Intersector dispatch: "pallas", "pallas_brute", "brute", "bvh", or
+    "auto" (resolve_intersector). sort and alive are honoured by "pallas"
+    only (the coherent re-bucketing of secondary rays); the other
+    intersectors do not depend on lane order."""
+    which = resolve_intersector(intersector, scene.tri_p.shape[0], o.device,
+                                brute_max_tris)
+    if which == "pallas":
         return cast_rays_pallas(scene, o, d, sort=sort, alive=alive)
-    if intersector == "pallas_brute":
+    if which == "pallas_brute":
         return cast_rays_pallas(scene, o, d, culled=False)
-    raise NotImplementedError(f"intersector {intersector!r} is not ported yet")
+    if which == "brute":
+        return cast_rays_brute(scene, o, d, chunk=brute_chunk)
+    if which == "bvh":
+        return cast_rays_bvh(scene, o, d)
+    raise ValueError(f"unknown intersector {intersector!r}")

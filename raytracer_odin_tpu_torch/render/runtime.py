@@ -1,21 +1,25 @@
 """Render runtime: camera rays, the per-step sample loop and the host
-driver (port of raytracer_odin_tpu/render/runtime.py).
+driver with trials, continuous mode and interrupts (port of
+raytracer_odin_tpu/render/runtime.py).
 
 One render step computes `samples_per_step` full-image samples and folds
 them into the device-resident Stats; the host loop repeats steps until the
-target spp. With compact="auto" one uncompacted 1-spp sample first
-calibrates the per-bounce lane budgets of the compacted wavefront; if a
-budget undershoots (overflow), the render is redone uncompacted.
+target spp, or in continuous mode until interrupted or converged, checking
+the interrupt flag only between steps (raytracer.odin:554). With
+compact="auto" one uncompacted 1-spp sample first calibrates the
+per-bounce lane budgets of the compacted wavefront; if a budget undershoots
+(overflow), the render is redone uncompacted.
 
 Entry points take a `device` (default "cuda") and refuse a scene that
 lives elsewhere: nothing moves work to the CPU behind the caller's back.
-Benchmark trials, continuous mode, interrupts, previews, row sharding, the
-pool and refill schedulers and the multi-device path are not ported yet.
+Previews, AOV layers, row sharding, the pool and refill schedulers and the
+multi-device path are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import signal
 import time
 from typing import Callable, Optional
 
@@ -31,6 +35,32 @@ from raytracer_odin_tpu_torch.ops.integrator import (
 from raytracer_odin_tpu_torch.render import accum
 from raytracer_odin_tpu_torch.utils import prng
 from raytracer_odin_tpu_torch.utils.math3d import normalize
+
+
+class InterruptFlag:
+    """Cooperative interrupt (async_interrupt / is_interrupted,
+    main.odin:20-25): install() routes SIGINT to the flag; the host loop
+    tests it between steps."""
+
+    def __init__(self):
+        self._flag = False
+        self._prev = None
+
+    def install(self):
+        def handler(signum, frame):
+            self._flag = True
+        self._prev = signal.signal(signal.SIGINT, handler)
+        return self
+
+    def uninstall(self):
+        if self._prev is not None:
+            signal.signal(signal.SIGINT, self._prev)
+
+    def set(self):
+        self._flag = True
+
+    def __bool__(self):
+        return self._flag
 
 
 def _require_device(scene, device) -> torch.device:
@@ -107,6 +137,8 @@ def _trace_options(cfg: RenderConfig, lane_schedule=None) -> TraceOptions:
     return TraceOptions(
         depth=cfg.ray_depth,
         intersector=cfg.intersector,
+        brute_chunk=cfg.brute_chunk,
+        brute_max_tris=cfg.brute_max_tris,
         lane_schedule=tuple(lane_schedule) if lane_schedule else None,
     )
 
@@ -162,10 +194,11 @@ def auto_lane_schedule(scene, cfg: RenderConfig, fov_x: float,
 class RenderResult:
     stats: accum.Stats
     samples_done: int
-    # Host wall time of the steps (after calibration), the device finished.
-    seconds: float
-    # Live path segments cast (the JAX package's accounting: dead lanes are
-    # not credited).
+    # Host wall time of each trial's steps (after calibration), the device
+    # finished.
+    trial_seconds: list
+    # Live path segments cast over every trial (the JAX package's
+    # accounting: dead lanes are not credited).
     rays_cast: int = 0
     # Live lanes that the compacted attempt's lane budgets cut off. Non-zero
     # means that attempt was thrown away and `stats` is the uncompacted
@@ -177,38 +210,94 @@ class RenderResult:
     lane_schedule: Optional[tuple] = None
 
 
-def render_scene(scene, cfg: RenderConfig, fov_x: float, device="cuda",
-                 on_step: Optional[Callable] = None) -> RenderResult:
-    """Full render (render_scene, raytracer.odin:602-665) of cfg.samples
-    samples. on_step(stats, samples_done) runs after every step."""
+def render_scene(
+    scene,
+    cfg: RenderConfig,
+    fov_x: float,
+    device="cuda",
+    trials: int = 1,
+    interrupt: Optional[InterruptFlag] = None,
+    on_step: Optional[Callable] = None,
+    initial_stats: Optional[accum.Stats] = None,
+    initial_samples: int = 0,
+    verbose: bool = False,
+    make_stats: Optional[Callable] = None,
+    converge_se: float = 0.0,
+    converge_check_every: int = 16,
+) -> RenderResult:
+    """Full render with benchmark trials (render_scene,
+    raytracer.odin:602-665). Each trial renders cfg.samples samples, or in
+    continuous mode (cfg.continuous) runs until `interrupt` is set;
+    on_step(stats, samples_done) runs after every step (checkpoint hook).
+    The first trial resumes from initial_stats / initial_samples when
+    given; `make_stats` overrides the fresh-accumulator factory.
+
+    converge_se > 0 adds a convergence stop to continuous mode: every
+    `converge_check_every` steps the median per-pixel standard error of
+    the beauty mean (mean_standard_error) is computed, and the render stops
+    once it drops below the threshold.
+
+    The step counters stay on the device and are read once at the end."""
     dev = _require_device(scene, device)
     lane_schedule = None
-    if compaction_applies(_trace_options(cfg)):
+    if compaction_applies(_trace_options(cfg), dev):
         lane_schedule = cfg.compact_schedule
         if cfg.compact == "auto" and lane_schedule is None:
             lane_schedule = auto_lane_schedule(scene, cfg, fov_x,
                                                device=device)
     step = make_render_step(cfg, fov_x, lane_schedule=lane_schedule,
                             device=device)
+    if make_stats is None:
+        def make_stats():
+            return accum.init_stats(1, cfg.height, cfg.width, device=dev)
     key = prng.key_from_seed(cfg.seed)
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    stats = accum.init_stats(1, cfg.height, cfg.width, device=dev)
+    timings = []
+    result_stats = None
     samples_done = 0
     info_total = None  # device-side sums; read once at the end
-    sync()
-    start = time.perf_counter()
-    while samples_done < cfg.samples:
-        stats, info = step(scene, stats, key, samples_done)
-        info_total = info if info_total is None else info_total + info
-        samples_done += cfg.samples_per_step
-        if on_step is not None:
-            on_step(stats, samples_done)
-    sync()
-    seconds = time.perf_counter() - start
+    target = None if cfg.continuous else cfg.samples
+    for trial in range(trials):
+        stats = (initial_stats if (initial_stats is not None and trial == 0)
+                 else make_stats())
+        samples_done = initial_samples if trial == 0 else 0
+        sync()
+        start = time.perf_counter()
+        while target is None or samples_done < target:
+            if interrupt:
+                break
+            stats, info = step(scene, stats, key, samples_done)
+            info_total = info if info_total is None else info_total + info
+            samples_done += cfg.samples_per_step
+            if on_step is not None:
+                on_step(stats, samples_done)
+            if (converge_se > 0.0 and cfg.continuous
+                    and (samples_done // cfg.samples_per_step)
+                    % converge_check_every == 0):
+                se = float(mean_standard_error(
+                    accum.crop(stats, cfg.height, cfg.width)))
+                if verbose:
+                    print(f"{samples_done} spp, median standard error "
+                          f"{se:.2e} (target {converge_se:.1e})")
+                if se < converge_se:
+                    if verbose:
+                        print(f"Converged at {samples_done} spp")
+                    break
+        sync()
+        elapsed = time.perf_counter() - start
+        timings.append(elapsed)
+        if verbose:
+            print(f"Trial {trial} >>> Rendered in {elapsed*1000:.2f}ms")
+        result_stats = stats
+        if interrupt:
+            break
+
+    if verbose and trials > 1:
+        print_perf_summary(timings)
 
     totals = [] if info_total is None else info_total.tolist()
     rays = totals[0] if totals else 0
@@ -220,15 +309,54 @@ def render_scene(scene, cfg: RenderConfig, fov_x: float, device="cuda",
               "re-rendering uncompacted")
         redo = render_scene(
             scene, cfg.replace(compact="off", compact_schedule=None), fov_x,
-            device=device, on_step=on_step,
+            device=device, trials=trials, interrupt=interrupt,
+            on_step=on_step, verbose=verbose, make_stats=make_stats,
+            converge_se=converge_se,
+            converge_check_every=converge_check_every,
         )
         return dataclasses.replace(redo, overflow=int(overflow))
     return RenderResult(
-        stats=stats,
+        stats=result_stats,
         samples_done=samples_done,
-        seconds=seconds,
+        trial_seconds=timings,
         rays_cast=int(rays),
         overflow=int(overflow),
         alive_counts=tuple(int(c) for c in totals[2:]),
         lane_schedule=tuple(lane_schedule) if lane_schedule else None,
     )
+
+
+def mean_standard_error(stats: accum.Stats):
+    """Median per-pixel standard error of the beauty-layer mean
+    (sqrt(sample variance / count), median over pixels and channels): the
+    convergence statistic of continuous mode. The median, not the mean:
+    one-sample-MIS firefly samples have heavy-tailed variance, so the mean
+    can jump when a firefly lands, while the median tracks typical-pixel
+    noise. For an even count it is the mean of the two middle values, as
+    jnp.median gives it (torch.median would return the lower one). Returns
+    a 0-dim tensor on the stats' device."""
+    n = torch.clamp(stats.count[0], min=1.0)[..., None]
+    mean = stats.total[0] / n
+    var = torch.clamp(stats.total_sq[0] / n - mean * mean, min=0.0)
+    se = torch.sort(torch.sqrt(var / n).reshape(-1)).values
+    m = se.numel()
+    return (se[(m - 1) // 2] + se[m // 2]) * 0.5
+
+
+def print_perf_summary(timings_s: list) -> None:
+    """Mean +/- Bessel-corrected std, best/median/worst
+    (raytracer.odin:648-664)."""
+    n = len(timings_s)
+    ts = sorted(timings_s)
+    mean = sum(ts) / n
+    var = sum(t * t for t in ts) / n - mean * mean
+    std = (var * n / max(n - 1, 1)) ** 0.5 if n > 1 else float("inf")
+    median = (ts[n // 2] + ts[(n + 1) // 2 if (n + 1) // 2 < n else n - 1]) / 2
+    print(">>>>>>>>> Performance Summary <<<<<<<<<")
+    print(f"Trials: {n}")
+    print(f"Time: {mean*1000:.02f}±{std*1000:.02f}ms")
+    print(
+        f"Best: {ts[0]*1000:.02f}ms, Median: {median*1000:.02f}ms, "
+        f"Worst: {ts[-1]*1000:.02f}ms"
+    )
+    print(">>>>>>>>> Performance Summary <<<<<<<<<")

@@ -71,6 +71,44 @@ def test_mask_kernel_bit_equal(cuda, n_clusters):
 
 
 @pytest.mark.gpu
+def test_mask_kernel_tmax_bit_equal(cuda):
+    """K1 with its tmax row: finite, BIG, NaN, zero and negative bounds, and
+    a NaN direction; counted in tmax_launches, not launches."""
+    rng = np.random.default_rng(6)
+    n_clusters = 111
+    lo = rng.uniform(-8, 8, (n_clusters, 3)).astype(np.float32)
+    hi = lo + rng.uniform(0.2, 3, (n_clusters, 3)).astype(np.float32)
+    aabb = np.zeros((128, 8), np.float32)
+    aabb[:, 0:3], aabb[:, 3:6] = pi.BIG, -pi.BIG
+    aabb[:n_clusters, 0:3], aabb[:n_clusters, 3:6] = lo, hi
+    rays = _rays(rng, 70_000)
+    tmax = torch.from_numpy(
+        rng.uniform(0, 20, rays.shape[1]).astype(np.float32))
+    tmax[::7] = pi.BIG
+    tmax[3::11] = float("nan")
+    tmax[4::13] = 0.0
+    tmax[6::17] = -1.0
+    rays[6] = tmax
+    rays[3, 9] = float("nan")
+    rays = rays.to(cuda)
+    a = torch.from_numpy(aabb).to(cuda)
+    before = (pi.cluster_masks_rows.launches,
+              pi.cluster_masks_rows.tmax_launches)
+    got = pi.cluster_masks_rows(a, rays, n_clusters, tmax_row=True)
+    want = pi._cluster_masks_plain(a, rays, n_clusters, tmax_row=True)
+    plain = pi._cluster_masks_plain(a, rays, n_clusters)
+    torch.cuda.synchronize()
+    assert (pi.cluster_masks_rows.launches,
+            pi.cluster_masks_rows.tmax_launches) == (before[0],
+                                                     before[1] + 1)
+    assert torch.equal(got, want)
+    big = (tmax == pi.BIG).to(cuda)
+    assert torch.equal(got[:, big], plain[:, big])
+    assert not bool(got[:, torch.isnan(tmax).to(cuda)].any())
+    assert bool((got != plain).any())
+
+
+@pytest.mark.gpu
 def test_sweep_kernel_bit_equal(cuda):
     rng = np.random.default_rng(1)
     tris = _tris(rng, 7090)

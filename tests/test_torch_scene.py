@@ -129,6 +129,10 @@ def test_port_imports_no_jax():
                    if p.relative_to(pkg).parts[0] != "build")
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    for must in ("cli.py", "__main__.py", "oracle/cpu_reference.py",
+                 "render/checkpoint.py", "io/writers.py",
+                 "utils/profiling.py"):
+        assert pkg / must in files, must
     for path in files:
         tree = ast.parse(path.read_text(), str(path))
         for node in ast.walk(tree):

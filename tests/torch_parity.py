@@ -9,16 +9,22 @@ contention (376 s instead of 37 s)."""
 import numpy as np
 import torch
 
-from raytracer_odin_tpu_torch.models.scene import TENSOR_FIELDS, scene_from_numpy
+from raytracer_odin_tpu_torch.models.scene import (
+    BVH_FIELDS,
+    TENSOR_FIELDS,
+    scene_from_numpy,
+)
 
 torch.set_num_threads(1)
 
 
 def torch_scene(jax_scene, device="cpu"):
-    """The port's DeviceScene holding the JAX scene's arrays. A streamed
-    JAX scene packs its triangle rows 128 wide; the port keeps their first
-    12 columns and marks the scene streamed."""
+    """The port's DeviceScene holding the JAX scene's arrays, its BVH
+    included. A streamed JAX scene packs its triangle rows 128 wide; the
+    port keeps their first 12 columns and marks the scene streamed."""
     arrays = {f: np.asarray(getattr(jax_scene, f)) for f in TENSOR_FIELDS}
+    arrays["bvh"] = {f: np.asarray(getattr(jax_scene.bvh, f))
+                     for f in BVH_FIELDS}
     stream = arrays["ptri"].shape[1] == 128
     arrays["ptri"] = arrays["ptri"][:, :12]
     return scene_from_numpy(
