@@ -5,14 +5,18 @@ Drives the port's paths on one NVIDIA GPU, one phase per line with its
 wall time:
 
   1. card      name and power limit (nvidia-smi)
-  2. build     the CUDA kernels K1-K5 (nvcc, ptxas -v report) and the host
-               lib
+  2. build     the CUDA kernels K1-K5 (nvcc, ptxas -v report: registers a
+               thread) and the host lib; SASS instructions a test in each
+               sweep's and K1's inner loop (cuobjdump -sass, sass_counts;
+               the SASS is written next to the renders as sass.txt)
   3. scene     the demo scene through the port's own assets, glTF reader
                and finish_scene(device="cuda")
   4. kernels   K1 (mask) and K2 (sweep) against their plain PyTorch
                versions, bit for bit, on the bounce-0 camera rays of the
                full frame and on the sorted, compacted bounce-1 batch of the
-               calibration sample; CUDA-event times and bounds
+               calibration sample; CUDA-event times and bounds; the SM
+               clock under each kernel's load, K2's warp-vote rates, and
+               the issue floors they give
   5. render    the main path: render_scene on the demo at 1920x1080, depth
                8, 1 spp per step, intersector="pallas", compact="auto":
                calibration plus the timed steps; Mrays/s over live path
@@ -49,8 +53,9 @@ wall time:
                  counts of the compacted main path; then --oracle on the cube
  10. with --profile: one more step of each path under torch.profiler,
      device time by kernel class and the device's busy share
- 11. the kernels JSON line (K1-K5 and K1 with its tmax row), then the
-     {"ok": true, ...} line.
+ 11. the kernels JSON line (K1-K5 and K1 with its tmax row; each with its
+     design generation and registers, K1, K1-tmax and K2 with their SASS
+     counts, SM clock and issue floors), then the {"ok": true, ...} line.
 
 The check phase renders the four golden images of tests/golden/ through
 "pallas" (cube and cornell at rtol 1e-3, atol 1e-4; the glossy textured and
@@ -74,6 +79,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -102,6 +110,29 @@ K2_OPS_PER_TEST = 54
 # hit test, 8 for t^2/|ng.d|, fac * w, the select, the NaN check and the
 # partial sum's add 4.
 K5_OPS_PER_TEST = 63
+# Hopper issues at most one warp instruction a clock from each of an SM's
+# four schedulers: the issue floor of a kernel is its SASS instructions a
+# test times its tests, over 32 lanes, 4 schedulers, the SMs and the clock.
+ISSUE_PER_SM_CLOCK = 4
+WARP = 32
+# The most paths of one loop iteration sass_loop walks; a loop with more
+# gets no count.
+SASS_MAX_PATHS = 4096
+# Each kernel's symbol in the ptxas report and the SASS, and the SASS
+# opcode that occurs a fixed number of times in each of its tests (the
+# slab test's 6 products; the triangle test's one reciprocal): it counts
+# the tests an iteration of the kernel's inner loop holds.
+KERNEL_SYMBOLS = {"K1": "mask_kernelILb0E", "K1 tmax": "mask_kernelILb1E",
+                  "K2": "culled_kernel", "K3": "brute_kernel",
+                  "K4": "stream_kernel", "K5": "light_kernel"}
+SASS_MARKERS = {"K1": ("FMUL", 6), "K1 tmax": ("FMUL", 6),
+                "K2": ("MUFU.RCP", 1), "K3": ("MUFU.RCP", 1),
+                "K4": ("MUFU.RCP", 1)}
+# Each kernel's design, a label: the first port, or the Hopper redesign of
+# K1 and K2 (csrc/intersect_kernels.cu says what each design does).
+DESIGN = {"K1": "hopper-redesign", "K1 tmax": "hopper-redesign",
+          "K2": "hopper-redesign", "K3": "first-port", "K4": "first-port",
+          "K5": "first-port"}
 # The demo frame of bench.py, and the timed steps after calibration.
 WIDTH, HEIGHT, DEPTH = 1920, 1080, 8
 STEPS = 5
@@ -181,9 +212,296 @@ def bound_ms(nbytes: float, ops: float) -> tuple:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def measure_k1(pi, aabb8, rays, n_bits, dev, reps, tmax_row=False):
+def ptxas_registers(report: str) -> dict:
+    """Registers a thread of each kernel, from the ptxas -v report."""
+    regs, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            for k, sym in KERNEL_SYMBOLS.items():
+                if sym in cur:
+                    regs[k] = int(m.group(1))
+            cur = None
+    return regs
+
+
+def cuobjdump_path():
+    """The CUDA toolkit's cuobjdump, else the one Triton ships, else None."""
+    cands = [Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
+             / "cuobjdump"]
+    try:
+        import triton
+
+        cands.append(Path(triton.__file__).parent / "backends" / "nvidia"
+                     / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    for c in cands:
+        if c.exists():
+            return str(c)
+    return shutil.which("cuobjdump")
+
+
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+
+
+def sass_functions(text: str) -> dict:
+    """{function: ([(address, instruction)], {label: address})} from
+    `cuobjdump -sass` text."""
+    funcs, cur, pending = {}, None, []
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            funcs[cur] = ([], {})
+            pending = []
+            continue
+        if cur is None:
+            continue
+        m = _SASS_LABEL.match(line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = _SASS_INSN.search(line)
+        if m:
+            addr = int(m.group(1), 16)
+            for lab in pending:
+                funcs[cur][1][lab] = addr
+            pending = []
+            funcs[cur][0].append((addr, m.group(2).strip()))
+    return funcs
+
+
+def _opcode(ins: str) -> str:
+    ins = re.sub(r"^@!?U?P\w+\s+", "", ins)
+    return ins.split()[0] if ins else ""
+
+
+def _branch_target(ins: str, labels: dict):
+    if _opcode(ins).split(".")[0] != "BRA":
+        return None
+    m = re.search(r"`\((\.L_x_\d+)\)", ins)
+    if m:
+        return labels.get(m.group(1))
+    hexes = re.findall(r"0x[0-9a-f]+", ins)
+    return int(hexes[-1], 16) if hexes else None
+
+
+def _conditional(ins: str) -> bool:
+    return ((ins.startswith("@") and not ins.startswith("@PT "))
+            or re.search(r"BRA\S*\s+!?U?P\d", ins) is not None)
+
+
+def sass_loop(insns, labels, marker: str, per_test: int):
+    """Instructions one iteration of a kernel's inner loop issues, per test.
+
+    The inner loop is the backward branch whose range holds the most
+    `marker` instructions (the smallest such range). Every path of one
+    iteration is walked from the loop head to the back edge. A conditional
+    forward branch is followed both ways, except where one way alone leads
+    to a CALL (the slow path of the correctly rounded reciprocal): that way
+    is not followed. A conditional branch back into an inner loop is not
+    taken. A branch right after a VOTE is a warp skip; `@!P BRA` skips
+    when taken. Of the paths that execute the most markers (every test of
+    the iteration, not a ragged remainder), returns the tests an iteration
+    holds (markers / per_test) and, per test, the instructions of the path
+    on which every warp passes every vote (full), passes each first vote
+    and skips at the second (mid), and skips at every first vote (skip).
+    None when no loop holds the marker, when the walk stopped at
+    SASS_MAX_PATHS paths (its counts would be partial), or when a path
+    that skips more issues more (full < mid, mid < skip or full < skip:
+    a walk that went wrong)."""
+    index = {a: i for i, (a, _) in enumerate(insns)}
+    loops = []
+    for a, ins in insns:
+        t = _branch_target(ins, labels)
+        if t is not None and t <= a:
+            marks = sum(_opcode(x) == marker for b, x in insns if t <= b <= a)
+            if marks:
+                loops.append((-marks, a - t, t, a))
+    if not loops:
+        return None
+    _, _, head, tail = min(loops)
+    paths = []
+
+    def calls(i, end):
+        """Whether instructions i..end (at most 200) hold a CALL."""
+        return any(_opcode(x).startswith("CALL")
+                   for _, x in insns[i:min(end, i + 200)])
+
+    def block_end(i):
+        for j in range(i, min(len(insns), i + 60)):
+            if _opcode(insns[j][1]).startswith(("BRA", "EXIT", "RET")):
+                return j + 1
+        return i + 60
+
+    def walk(i, count, marks, votes):
+        while i < len(insns) and len(paths) < SASS_MAX_PATHS:
+            a, ins = insns[i]
+            op = _opcode(ins)
+            if op != "NOP":
+                count += 1
+            marks += op == marker
+            t = _branch_target(ins, labels)
+            if t is None:
+                if op.startswith(("EXIT", "RET")):
+                    break
+                i += 1
+                continue
+            if t == head or t not in index:  # the back edge ends it
+                break
+            if not _conditional(ins):
+                i = index[t]
+                continue
+            if t < a:
+                i += 1
+                continue
+            j = index[t]
+            # the fall-through up to the target (inside the loop), and the
+            # block at the target
+            fall = calls(i + 1, j if t <= tail else block_end(i + 1))
+            jump = calls(j, block_end(j))
+            if fall != jump:
+                i = i + 1 if jump else j
+                continue
+            if any(_opcode(x).startswith("VOTE")
+                   for _, x in insns[max(0, i - 4):i]):
+                skip_when_taken = ins.startswith("@!")
+                walk(j, count, marks, votes + ("S" if skip_when_taken
+                                               else "P"))
+                votes += "P" if skip_when_taken else "S"
+            else:
+                walk(j, count, marks, votes)
+            i += 1
+        paths.append((count, marks, votes))
+
+    walk(index[head], 0, 0, "")
+    if len(paths) >= SASS_MAX_PATHS:
+        return None
+    most = max(m for _, m, _ in paths)
+    main = [(c, v) for c, m, v in paths if m == most]
+    tests = most / per_test
+
+    def per(pattern):
+        got = [c for c, v in main if re.fullmatch(pattern, v)]
+        return max(got) / tests if got else None
+
+    full, mid, skip = per("P*"), per("(PS)*"), per("S*")
+    for more, fewer in ((full, mid), (mid, skip), (full, skip)):
+        if more is not None and fewer is not None and more < fewer:
+            return None
+    return {"tests_per_iteration": tests, "per_test_full": full,
+            "per_test_mid": mid, "per_test_skip": skip, "paths": len(paths)}
+
+
+def sass_counts(so_path, dump_to=None) -> dict:
+    """SASS instructions a test in each kernel's inner loop (sass_loop),
+    from `cuobjdump -sass` of the built library; the SASS is written to
+    `dump_to` when given. {} when no cuobjdump is found."""
+    tool = cuobjdump_path()
+    if tool is None:
+        return {}
+    text = subprocess.run([tool, "-sass", str(so_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    if dump_to is not None:
+        Path(dump_to).write_text(text)
+    funcs = sass_functions(text)
+    out = {}
+    for k, (marker, per_test) in SASS_MARKERS.items():
+        for name, (insns, labels) in funcs.items():
+            if KERNEL_SYMBOLS[k] in name:
+                out[k] = sass_loop(insns, labels, marker, per_test)
+    return out
+
+
+def sm_clock_mhz(fn, ms_each: float, dev):
+    """The SM clock (MHz) nvidia-smi reads while about a second of `fn`'s
+    launches runs on the card."""
+    for _ in range(max(1, min(4000, int(1000 / max(ms_each, 0.25))))):
+        fn()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60, check=True)
+    sync(dev)
+    return int(out.stdout.split()[0])
+
+
+def issue_floor_ms(tests: float, per_test: float, mhz: float,
+                   n_sm: int) -> float:
+    """Least time `tests` tests take at `per_test` SASS instructions each
+    when every scheduler issues one warp instruction every clock."""
+    return (tests * per_test / WARP / (ISSUE_PER_SM_CLOCK * n_sm * mhz * 1e6)
+            * 1e3)
+
+
+def add_floors(m: dict, sass: dict, mhz, n_sm: int) -> dict:
+    """m with the issue floors of its tests at the kernel's SASS counts:
+    issue_floor_ms at the full path; for a kernel with warp skips also
+    issue_floor_skip_ms (every warp skips at its first vote) and, where m
+    holds the warps' vote rates, issue_floor_data_ms at this batch's
+    rates."""
+    if not sass or mhz is None:
+        return dict(m, issue_floor_ms=None)
+    tests = m.get("ray_triangle_tests", m.get("tests"))
+    out = dict(m, issue_floor_ms=issue_floor_ms(
+        tests, sass["per_test_full"], mhz, n_sm))
+    if sass["per_test_skip"] != sass["per_test_full"]:
+        out["issue_floor_skip_ms"] = issue_floor_ms(
+            tests, sass["per_test_skip"], mhz, n_sm)
+        if "vote_rates" in m and sass["per_test_mid"] is not None:
+            p1, p2 = m["vote_rates"]
+            per = (sass["per_test_skip"]
+                   + p1 * (sass["per_test_mid"] - sass["per_test_skip"])
+                   + p2 * (sass["per_test_full"] - sass["per_test_mid"]))
+            out["issue_floor_data_ms"] = issue_floor_ms(tests, per, mhz,
+                                                        n_sm)
+    return out
+
+
+def warp_vote_rates(pi, counts, lists, rays, tris):
+    """K2's warp skips on this batch: the share of (warp, listed triangle)
+    pairs in which some ray of the warp (32 lanes, a ray each) has
+    0 <= bu <= 1 (passes the first vote) and in which some ray is inside
+    (passes the second), from the plain version's own terms."""
+    import torch
+
+    block, leaf = pi.RB_SUB, pi.LEAF
+    nsb = rays.shape[1] // block
+    n_clusters = tris.shape[0] // leaf
+    tri9 = tris[:, :9].reshape(n_clusters, leaf, 9)
+    n_of = torch.where(counts < 0, n_clusters, counts)
+    pairs = v1 = v2 = 0
+    chunk = max(1, (1 << 23) // (leaf * block))
+    for s0 in range(0, nsb, chunk):
+        s1 = min(nsb, s0 + chunk)
+        r = rays[:, s0 * block:s1 * block].reshape(8, s1 - s0, 1, block)
+        comps = [r[i] for i in range(6)]
+        n_c = n_of[s0:s1]
+        for k in range(int(n_c.max()) if s1 > s0 else 0):
+            active = (k < n_c)[:, None, None]
+            listed = lists[s0:s1, min(k, lists.shape[1] - 1)]
+            cid = torch.where(counts[s0:s1] < 0, k,
+                              torch.where(k < n_c, listed, 0)).long()
+            bu, bv, _ = pi.moller_trumbore(tri9[cid], *comps)
+            shape = (s1 - s0, leaf, block // WARP, WARP)
+            p1 = ((bu >= 0) & (bu <= 1)).reshape(shape).any(-1) & active
+            p2 = pi.inside_triangle(bu, bv).reshape(shape).any(-1) & active
+            pairs += int(active.sum()) * leaf * (block // WARP)
+            v1 += int(p1.sum())
+            v2 += int(p2.sum())
+    return [v1 / max(pairs, 1), v2 / max(pairs, 1)]
+
+
+def measure_k1(pi, aabb8, rays, n_bits, dev, reps, tmax_row=False,
+               clock=False):
     """K1 on (aabb8, rays), with or without its tmax row: bit equality with
-    the plain version, times and bound."""
+    the plain version, times and bound; with `clock`, the SM clock under
+    its load."""
     import torch
 
     got = pi.cluster_masks_rows(aabb8, rays, n_bits, tmax_row=tmax_row)
@@ -205,17 +523,23 @@ def measure_k1(pi, aabb8, rays, n_bits, dev, reps, tmax_row=False):
               + got.shape[0] * 4 * n)
     per_test = K1_TMAX_OPS_PER_TEST if tmax_row else K1_OPS_PER_TEST
     b_ms, b_by = bound_ms(nbytes, per_test * n * n_bits + 3 * n)
-    return {"rays": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by,
-            "max_abs_err": float((got.long() - want.long()).abs().max())}
+    out = {"rays": n, "tests": n * n_bits, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "max_abs_err": float((got.long() - want.long()).abs().max())}
+    if clock and dev.type == "cuda":
+        out["sm_clock_mhz"] = sm_clock_mhz(
+            lambda: pi.cluster_masks_rows(aabb8, rays, n_bits,
+                                          tmax_row=tmax_row), ms, dev)
+    return out
 
 
 def measure_sweep(pi, trav, scene, words, rays, g, n_super, dev, reps,
-                  slice_blocks=None):
+                  slice_blocks=None, clock=False):
     """The list sweep of `scene` on the lists the main path builds for
     (words, rays): K4 for a streamed scene, K2 otherwise. Bit equality with
     the plain version (on the first `slice_blocks` 512-ray blocks when
-    given), times and the bound from this batch's list lengths."""
+    given), times and the bound from this batch's list lengths; with
+    `clock`, the SM clock under its load."""
     import torch
 
     counts, lists = trav.sweep_lists(scene, words, rays, g, n_super)
@@ -254,6 +578,11 @@ def measure_sweep(pi, trav, scene, words, rays, g, n_super, dev, reps,
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
            # t is BIG on both sides of a miss
            "max_abs_err": float((got[:2, a:b] - want[:2]).abs().max())}
+    if clock and dev.type == "cuda":
+        out["sm_clock_mhz"] = sm_clock_mhz(
+            lambda: kernel(tris, counts, lists, rays), ms, dev)
+    if not scene.stream and b - a == n:
+        out["vote_rates"] = warp_vote_rates(pi, counts, lists, rays, tris)
     if b - a < n:
         out["plain_slice"] = [a, b]
         out["slice_hits"] = int((want[1] >= 0).sum())
@@ -639,6 +968,12 @@ def main(argv=None) -> int:
             cuda_build.load()
         host_build.result()  # raises if g++ failed
     print(report.strip(), flush=True)
+    regs = ptxas_registers(report)
+    sass = {}
+    if not rehearsal:
+        sass = sass_counts(cuda_build._SO, OUT_DIR / "sass.txt")
+    print(f"  registers a thread {json.dumps(regs)}", flush=True)
+    print(f"  SASS inner loops {json.dumps(sass)}", flush=True)
     ph.done("build", s)
 
     # 3. scene
@@ -661,11 +996,12 @@ def main(argv=None) -> int:
     kb = kernel_batches(rt, integ, trav, prng, pi, scene, cfg, fov_x, dev)
     rays0, rays1 = kb["rays0"], kb["rays1"]
     k1_b0 = measure_k1(pi, kb["aabb8"], rays0, kb["n_super"], dev, reps)
-    k1_b1 = measure_k1(pi, kb["aabb8"], rays1, kb["n_super"], dev, reps)
+    k1_b1 = measure_k1(pi, kb["aabb8"], rays1, kb["n_super"], dev, reps,
+                       clock=True)
     k2_b0 = measure_sweep(pi, trav, scene, kb["words0"], rays0, kb["g"],
                           kb["n_super"], dev, reps)
     k2_b1 = measure_sweep(pi, trav, scene, kb["words1"], rays1, kb["g"],
-                          kb["n_super"], dev, reps)
+                          kb["n_super"], dev, reps, clock=True)
     for name, m in (("K1 bounce 0", k1_b0), ("K1 bounce 1", k1_b1),
                     ("K2 bounce 0", k2_b0), ("K2 bounce 1", k2_b1)):
         print(f"  {name}: {json.dumps(m)}", flush=True)
@@ -816,35 +1152,55 @@ def main(argv=None) -> int:
                      res.lane_schedule, dev, "demo")
         ph.done("profile demo", s)
 
-    def entry(name, replaces, main, launches, extra):
-        return dict({
+    def entry(name, key, replaces, main, launches, extra):
+        out = dict({
             "name": name, "route": "cuda",
             "source": "raytracer_odin_tpu_torch/csrc/intersect_kernels.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
-            "plain_is_yardstick": False, "card": card}, **extra)
+            "plain_is_yardstick": False, "card": card,
+            "design": DESIGN[key], "registers": regs.get(key)}, **extra)
+        if key in ("K1", "K1 tmax", "K2"):
+            # SASS a test, the SM clock under the kernel's load, and the
+            # issue floors they give at the main shape
+            out.update(sass=sass.get(key), sm_clock_mhz=main.get(
+                "sm_clock_mhz"), **{f: main[f] for f in (
+                    "vote_rates", "issue_floor_ms", "issue_floor_skip_ms",
+                    "issue_floor_data_ms") if f in main})
+        return out
+
+    n_sm = (torch.cuda.get_device_properties(dev).multi_processor_count
+            if dev.type == "cuda" else 0)
+
+    def floored(key, m, mhz):
+        return add_floors(m, sass.get(key), mhz, n_sm)
 
     def by_path(k):
         return {p: v["launches"][k] for p, v in paths.items()}
 
-    k1_tmax = two["k1_tmax"]
+    mhz1, mhz2 = k1_b1.get("sm_clock_mhz"), k2_b1.get("sm_clock_mhz")
+    k1_tmax = floored("K1 tmax", two["k1_tmax"],
+                      two["k1_tmax"].get("sm_clock_mhz"))
+    k1_b0, k1_b1 = floored("K1", k1_b0, mhz1), floored("K1", k1_b1, mhz1)
+    k2_b0, k2_b1 = floored("K2", k2_b0, mhz2), floored("K2", k2_b1, mhz2)
 
     kernels = [
         # main entries: the demo's sorted, compacted bounce-1 batch (7 of a
         # step's 8 launches are sorted batches); bounce0: the camera rays
-        entry("K1 cluster_masks_rows",
+        entry("K1 cluster_masks_rows", "K1",
               "raytracer_odin_tpu/ops/pallas_intersect.py:275", k1_b1,
               demo["launches"]["K1"],
               {"launches_per_step": demo["per_step"]["K1"][0],
                "launches_in_calibration": demo["calibration"]["K1"],
                "rays": k1_b1["rays"], "bounce0": k1_b0,
                "launches_by_path": by_path("K1"),
-               "city24_bounce1": paths["city24"]["checks"]["K1 bounce 1"]}),
+               "city24_bounce1": floored(
+                   "K1", paths["city24"]["checks"]["K1 bounce 1"], mhz1)}),
         # K1 with its tmax row: the demo's sorted bounce-1 batch with
         # phase A's t in row 6, on the twophase path
-        entry("K1 cluster_masks_rows tmax_row",
+        entry("K1 cluster_masks_rows tmax_row", "K1 tmax",
               "raytracer_odin_tpu/ops/pallas_intersect.py:275", k1_tmax,
               two["launches"]["K1 tmax"],
               {"launches_per_step": two["per_step"]["K1 tmax"][0],
@@ -852,17 +1208,18 @@ def main(argv=None) -> int:
                "rays": k1_tmax["rays"],
                "index_flips": k1_tmax["index_flips"],
                "launches_by_path": by_path("K1 tmax")}),
-        entry("K2 intersect_culled_rows",
+        entry("K2 intersect_culled_rows", "K2",
               "raytracer_odin_tpu/ops/pallas_intersect.py:162", k2_b1,
               demo["launches"]["K2"],
               {"launches_per_step": demo["per_step"]["K2"][0],
                "launches_in_calibration": demo["calibration"]["K2"],
                "rays": k2_b1["rays"], "bounce0": k2_b0,
                "launches_by_path": by_path("K2"),
-               "city_bounce1": paths["city"]["checks"]["K2 bounce 1"]}),
+               "city_bounce1": floored(
+                   "K2", paths["city"]["checks"]["K2 bounce 1"], mhz2)}),
         # K3: the brute path's bounce-0 camera rays (every bounce sweeps
         # every cluster, uncompacted)
-        entry("K3 intersect_brute_rows",
+        entry("K3 intersect_brute_rows", "K3",
               "raytracer_odin_tpu/ops/pallas_intersect.py:140",
               paths["brute"]["checks"]["K3 bounce 0"],
               paths["brute"]["launches"]["K3"],
@@ -870,7 +1227,7 @@ def main(argv=None) -> int:
                "launches_in_calibration":
                    paths["brute"]["calibration"]["K3"]}),
         # K4: city24's sorted, compacted bounce-1 batch
-        entry("K4 intersect_stream_rows",
+        entry("K4 intersect_stream_rows", "K4",
               "raytracer_odin_tpu/ops/pallas_intersect.py:217",
               paths["city24"]["checks"]["K4 bounce 1"],
               paths["city24"]["launches"]["K4"],
@@ -879,7 +1236,7 @@ def main(argv=None) -> int:
                    paths["city24"]["calibration"]["K4"],
                "bounce0": paths["city24"]["checks"]["K4 bounce 0"]}),
         # K5: citynight's bounce-0 shading batch (full frame)
-        entry("K5 light_sums_rows",
+        entry("K5 light_sums_rows", "K5",
               "raytracer_odin_tpu/ops/light_cull.py:103",
               paths["citynight"]["checks"]["K5 bounce 0"],
               paths["citynight"]["launches"]["K5"],
@@ -1009,7 +1366,7 @@ def twophase_path(rt, trav, pi, scene, cfg, fov_x, dev, counters, kb,
         t_two, i_two = trav.cast_presorted_rows(scene, rays1, words1)
         sync(dev)
         check = measure_k1(pi, aabb8, rays_b, n_super, dev, reps,
-                           tmax_row=True)
+                           tmax_row=True, clock=True)
         # mean clusters a 256-ray list sweeps in phases A and B
         check["mean_list_a_b"] = [float(counts_a.float().mean()),
                                   float(counts_b.float().mean())]

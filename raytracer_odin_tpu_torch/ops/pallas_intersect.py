@@ -13,8 +13,9 @@ next to a plain PyTorch version of each:
   * K4 `intersect_stream_rows` — the K2 sweep with one list per RB-ray
     block, for scenes above STREAM_TRIS (replaces `_culled_stream_kernel`).
 
-K2, K3 and K4 share one cluster test and winner rule (the CUDA device
-functions `test_cluster` / `sweep_block`, and `_culled_plain` here).
+K2, K3 and K4 share one cluster test and winner rule (`_culled_plain`
+here; in CUDA, K3 and K4 share `sweep_block`, and K2, the main path's
+sweep, has a kernel of its own with warp skips that change no bit).
 
 A wrapper launches its CUDA kernel for tensors on a CUDA device and counts
 the launch in its `launches` attribute; it runs the plain version only for
@@ -188,7 +189,8 @@ def cluster_masks_rows(aabb8, rays, n_clusters: int | None = None,
         return _cluster_masks_plain(aabb8, rays, n_bits, tmax_row)
     if dev.type != "cuda":
         raise ValueError(f"cluster_masks_rows: unsupported device {dev}")
-    if s_pad * 6 * 4 > 48 * 1024:
+    # the kernel stages the boxes as their 32-byte aabb8 rows
+    if s_pad * 8 * 4 > 48 * 1024:
         raise ValueError(f"{s_pad} boxes exceed the kernel's shared memory")
     from raytracer_odin_tpu_torch.ops import cuda_build
 
@@ -216,6 +218,38 @@ cluster_masks_rows.tmax_launches = 0
 # ---------------------------------------------------------------------------
 # K2: list-driven culled sweep.
 # ---------------------------------------------------------------------------
+
+def moller_trumbore(tr, ox, oy, oz, dx, dy, dz):
+    """The sweep's ray-triangle terms (bu, bv, t), each product and sum
+    rounded separately in the kernels' order. tr [..., 9] rows p u v
+    (broadcast against the ray components with a trailing axis)."""
+    px, py, pz = tr[..., 0:1], tr[..., 1:2], tr[..., 2:3]
+    ux, uy, uz = tr[..., 3:4], tr[..., 4:5], tr[..., 5:6]
+    vx, vy, vz = tr[..., 6:7], tr[..., 7:8], tr[..., 8:9]
+    # pvec = d x v
+    pvx = dy * vz - dz * vy
+    pvy = dz * vx - dx * vz
+    pvz = dx * vy - dy * vx
+    det = ux * pvx + uy * pvy + uz * pvz
+    inv = 1.0 / det
+    tx = ox - px
+    ty = oy - py
+    tz = oz - pz
+    bu = (tx * pvx + ty * pvy + tz * pvz) * inv
+    # qvec = tvec x u
+    qx = ty * uz - tz * uy
+    qy = tz * ux - tx * uz
+    qz = tx * uy - ty * ux
+    bv = (dx * qx + dy * qy + dz * qz) * inv
+    t = (vx * qx + vy * qy + vz * qz) * inv
+    return bu, bv, t
+
+
+def inside_triangle(bu, bv):
+    """The sweep's inside test, false on NaN. It implies 0 <= bu <= 1,
+    which makes K2's warp skip exact (csrc/intersect_kernels.cu, K2)."""
+    return torch.minimum(torch.minimum(bu, bv), 1.0 - (bu + bv)) >= 0
+
 
 def _culled_plain(counts, lists, rays, tris, block: int = RB_SUB):
     """Plain PyTorch version of K2 (block RB_SUB), K4 (block RB) and K3
@@ -247,28 +281,9 @@ def _culled_plain(counts, lists, rays, tris, block: int = RB_SUB):
             # rows past their count read no list entry (cluster 0 is a
             # stand-in that `active` discards)
             cid = torch.where(ov_c, k, torch.where(active, listed, 0)).long()
-            tr = tri9[cid]                                  # [nb, LEAF, 9]
-            px, py, pz = tr[..., 0:1], tr[..., 1:2], tr[..., 2:3]
-            ux, uy, uz = tr[..., 3:4], tr[..., 4:5], tr[..., 5:6]
-            vx, vy, vz = tr[..., 6:7], tr[..., 7:8], tr[..., 8:9]
-            # pvec = d x v  -> [nb, LEAF, block]
-            pvx = dy * vz - dz * vy
-            pvy = dz * vx - dx * vz
-            pvz = dx * vy - dy * vx
-            det = ux * pvx + uy * pvy + uz * pvz
-            inv = 1.0 / det
-            tx = ox - px
-            ty = oy - py
-            tz = oz - pz
-            bu = (tx * pvx + ty * pvy + tz * pvz) * inv
-            # qvec = tvec x u
-            qx = ty * uz - tz * uy
-            qy = tz * ux - tx * uz
-            qz = tx * uy - ty * ux
-            bv = (dx * qx + dy * qy + dz * qz) * inv
-            t = (vx * qx + vy * qy + vz * qz) * inv
-            inside = torch.minimum(torch.minimum(bu, bv), 1.0 - (bu + bv)) >= 0
-            ok = inside & (t > 0) & (t < best_t)
+            # [nb, LEAF, block]
+            bu, bv, t = moller_trumbore(tri9[cid], ox, oy, oz, dx, dy, dz)
+            ok = inside_triangle(bu, bv) & (t > 0) & (t < best_t)
             t_ok = torch.where(ok, t, BIG)
             tmin = t_ok.amin(dim=1, keepdim=True)           # [nb, 1, block]
             better = (tmin < best_t) & active[:, None, None]
@@ -332,6 +347,9 @@ def intersect_culled_rows(scene_tris, counts, lists, rays):
     dev = _check_sweep(scene_tris, counts, lists, rays, RB_SUB)
     if dev.type == "cpu":
         return _culled_plain(counts, lists, rays, scene_tris, RB_SUB)
+    if scene_tris.data_ptr() % 16:
+        # the kernel copies each cluster's rows in 16-byte pieces
+        raise ValueError("scene_tris must start on a 16-byte boundary")
     out = _sweep_launch("rt_culled_launch", scene_tris, counts, lists, rays)
     intersect_culled_rows.launches += 1
     return out

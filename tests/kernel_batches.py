@@ -1,0 +1,276 @@
+"""Adversarial inputs for the port's mask kernel (K1) and culled sweep (K2),
+and a CPU model of K2's warp skips.
+
+The batches are built with numpy from a seed. Each holds what a sweep's
+rounding rules are most likely to get wrong: triangles of a grid mesh that
+share edges and vertices, rays aimed exactly at those edges and vertices,
+a cluster repeated under another id (equal t in two listed clusters), BIG
+pad rows, dead lanes carrying NaN, direction components at +-0 and at the
+1e-30 clamp, and warps in which a single lane can pass the bu test.
+`tests/test_torch_gpu.py` holds the CUDA kernels bit-equal to their plain
+versions on them; `tests/test_torch_kernel_rules.py` holds the warp-skip
+model bit-equal to the plain sweep on them, on the CPU. Neither imports
+jax, so the card tests run where there is none."""
+
+import numpy as np
+import torch
+
+from raytracer_odin_tpu_torch.ops import culling
+from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
+from raytracer_odin_tpu_torch.ops import traverse
+
+GRID = 8          # quads a side of each mesh: 128 triangles, 2 clusters
+WARP_RAYS = 32    # rays behind one K2 warp vote: 32 lanes, a ray each
+N_RAYS = 16 * pi.RB_SUB
+
+
+def mesh_rows(z: float, flip: bool = False) -> np.ndarray:
+    """[2 * GRID^2, 9] rows p u v of a GRID x GRID quad mesh in the plane
+    at height z over [0, GRID]^2: two triangles a quad, sharing its
+    diagonal, quads sharing edges and vertices; unit edges, so every
+    barycentric on an edge or a vertex is exact."""
+    rows = []
+    for i in range(GRID):
+        for j in range(GRID):
+            rows.append([i, j, z, 1, 0, 0, 0, 1, 0])
+            rows.append([i + 1, j + 1, z, -1, 0, 0, 0, -1, 0])
+    a = np.asarray(rows, np.float32)
+    if flip:  # the other winding: det changes sign
+        a[:, 3:9] = np.concatenate([a[:, 6:9], a[:, 3:6]], axis=1)
+    return a
+
+
+def triangles() -> np.ndarray:
+    """[Tpad, 12] packed rows: clusters 0-1 the mesh at z = 0, 2-3 the
+    same rows again (equal t under other ids), 4-5 the mesh at z = -1
+    with the other winding, then 20 small triangles and BIG pad rows."""
+    rng = np.random.default_rng(70)
+    mesh = mesh_rows(0.0)
+    small_p = rng.uniform(0, GRID, (20, 3)).astype(np.float32)
+    small_p[:, 2] = 0.5
+    small = np.concatenate([small_p, np.full((20, 3), 0.25, np.float32),
+                            np.float32([[0, 0.25, 0]]).repeat(20, 0)], 1)
+    rows = np.concatenate([mesh, mesh, mesh_rows(-1.0, flip=True), small])
+    return pi.pad_triangles(rows[:, 0:3], rows[:, 3:6], rows[:, 6:9])
+
+
+def cluster_boxes(tris: np.ndarray, extra: int = 0, seed: int = 71):
+    """aabb8 [S_pad, 8] of the clusters of `tris` (flat boxes: lo.z ==
+    hi.z), then `extra` random boxes, two of them at +-0 bounds; pad rows
+    (BIG, -BIG). Returns (aabb8, n_bits)."""
+    rng = np.random.default_rng(seed)
+    real = tris[:, 0] < pi.BIG
+    p, u, v = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]
+    corners = np.stack([p, p + u, p + v])
+    lo_t = np.where(real[:, None], corners.min(0), pi.BIG)
+    hi_t = np.where(real[:, None], corners.max(0), -pi.BIG)
+    lo, hi = culling.cluster_aabbs(lo_t[real], hi_t[real])
+    elo = rng.uniform(-2, GRID + 2, (extra, 3)).astype(np.float32)
+    ehi = elo + rng.uniform(0, 3, (extra, 3)).astype(np.float32)
+    if extra >= 2:
+        elo[0], ehi[0] = np.float32([-0.0, -0.0, -0.0]), np.float32(
+            [0.0, 0.0, 0.0])
+        elo[1], ehi[1] = np.float32([0.0, -1, -0.0]), np.float32(
+            [GRID, -0.0, 0.0])
+    lo, hi = np.concatenate([lo, elo]), np.concatenate([hi, ehi])
+    n = lo.shape[0]
+    s_pad = -(-n // 32) * 32
+    aabb = np.zeros((s_pad, 8), np.float32)
+    aabb[:, 0:3], aabb[:, 3:6] = pi.BIG, -pi.BIG
+    aabb[:n, 0:3], aabb[:n, 3:6] = lo, hi
+    return aabb, n
+
+
+def rays(case: str, seed: int = 72) -> torch.Tensor:
+    """[8, N_RAYS] f32 ray rows of one adversarial case (o, d; rows 6-7
+    zero). Every case mixes in rays aimed at random mesh points so that
+    most lists are not empty."""
+    rng = np.random.default_rng(seed)
+    n = N_RAYS
+    target = np.concatenate([rng.uniform(0, GRID, (n, 2)),
+                             np.zeros((n, 1))], 1).astype(np.float32)
+    o = np.concatenate([rng.uniform(-2, GRID + 2, (n, 2)),
+                        rng.uniform(1, 6, (n, 1))], 1).astype(np.float32)
+    if case == "shared_edges":
+        # grid vertices (up to six triangles meet), edge midpoints and
+        # quad diagonals (two triangles share them)
+        k = n // 3
+        ij = rng.integers(0, GRID + 1, (n, 2)).astype(np.float32)
+        target[:k, :2] = ij[:k]
+        target[k:2 * k, :2] = ij[k:2 * k] + np.float32([0.5, 0.0])
+        target[2 * k:, :2] = np.minimum(ij[2 * k:], GRID - 1) + 0.5
+    d = target - o
+    if case == "zero_dirs":
+        # straight down (dx = dy = +-0), grazing (dz = +-0, origin in the
+        # plane), one component at and below the 1e-30 clamp
+        d[0::4, 0:2] = np.float32([0.0, -0.0])
+        o[1::4, 2] = rng.choice(np.float32([0.0, -0.0]), n // 4)
+        d[1::4, 2] = rng.choice(np.float32([0.0, -0.0]), n // 4)
+        d[2::4, 0] = np.float32(1e-30)
+        d[3::4, 1] = np.float32(-1e-31)
+    if case == "nan_lanes":
+        # dead lanes: NaN origins and directions, or NaN in one component
+        o[0::3] = np.nan
+        d[0::3] = np.nan
+        d[1::5, 2] = np.nan
+        o[2::7, 0] = np.nan
+    if case == "one_lane":
+        # each warp: every ray meets the mesh plane far outside the mesh
+        # (bu fails for every triangle), but one lane aimed at the mesh
+        o[:] = np.float32([1000.0, 1500.0, 5.0])
+        d[:] = np.float32([0.0, 0.0, -1.0])
+        lane = np.arange(0, n, WARP_RAYS) + rng.integers(0, WARP_RAYS,
+                                                          n // WARP_RAYS)
+        o[lane] = np.float32([4.0, 4.0, 5.0])
+        d[lane] = target[lane] - o[lane]
+    r, _, _ = pi.pack_rays(torch.from_numpy(o), torch.from_numpy(d))
+    return r
+
+
+SWEEP_CASES = ("nan_lanes", "zero_dirs", "shared_edges", "counts", "width1",
+               "equal_t", "one_lane")
+
+
+def sweep_batch(case: str):
+    """(tris, counts, lists, rays) of one adversarial K2 case, on the CPU.
+    Lists come from the plain K1 masks (ascending ids) unless the case
+    makes its own: "counts" sets counts of -1 and 0, "width1" keeps one
+    entry a list with counts -1, 0, 1 and 2, "equal_t" lists the mesh and
+    its copy in both orders."""
+    tris = torch.from_numpy(triangles())
+    nc = tris.shape[0] // pi.LEAF
+    aabb, n_bits = cluster_boxes(tris.numpy())
+    r = rays(case if case in ("nan_lanes", "zero_dirs", "shared_edges",
+                              "one_lane") else "shared_edges")
+    words = pi._cluster_masks_plain(torch.from_numpy(aabb), r, n_bits)
+    counts, lists = traverse.exact_lists(words, n_bits)
+    nsb = counts.shape[0]
+    if case == "counts":
+        counts[0::5] = -1
+        counts[3::7] = 0
+    elif case == "width1":
+        lists = lists[:, :1].contiguous()
+        counts = torch.tensor([-1, 0, 1, 2], dtype=torch.int32).repeat(
+            -(-nsb // 4))[:nsb].contiguous()
+    elif case == "equal_t":
+        # clusters 0-1 and 2-3 hold the same rows: the first listed wins
+        a = torch.tensor([0, 1, 2, 3, 4, 5], dtype=torch.int32)
+        b = torch.tensor([2, 3, 0, 1, 5, 4], dtype=torch.int32)
+        lists = torch.stack([a if s % 2 else b for s in range(nsb)])
+        counts = torch.full((nsb,), 6, dtype=torch.int32)
+    assert int(counts.max()) <= nc
+    return tris, counts, lists.contiguous(), r
+
+
+def k2_with_warp_skips(counts, lists, rays_, tris):
+    """A CPU model of the CUDA K2's control flow: the plain sweep, except
+    that a triangle counts for a ray only when some ray of its WARP_RAYS-ray
+    warp has 0 <= bu <= 1 and some ray of it is inside, as the kernel skips
+    the rest of the test otherwise. Returns hits [8, Npad] like the plain
+    version."""
+    npad = rays_.shape[1]
+    nsb = npad // pi.RB_SUB
+    n_clusters = tris.shape[0] // pi.LEAF
+    tri9 = tris[:, :9].reshape(n_clusters, pi.LEAF, 9)
+    out = torch.zeros((8, npad), dtype=torch.float32)
+    rows = torch.arange(pi.LEAF, dtype=torch.float32)[:, None]
+    for s in range(nsb):
+        r = rays_[:, s * pi.RB_SUB:(s + 1) * pi.RB_SUB]
+        ox, oy, oz, dx, dy, dz = (r[i][None] for i in range(6))
+        best_t = torch.full((1, pi.RB_SUB), pi.BIG)
+        best_i = torch.full((1, pi.RB_SUB), -1.0)
+        count = int(counts[s])
+        n = n_clusters if count < 0 else count
+        for k in range(n):
+            cid = k if count < 0 else int(lists[s, min(k, lists.shape[1] - 1)])
+            bu, bv, t = pi.moller_trumbore(tri9[cid], ox, oy, oz, dx, dy, dz)
+            inside = pi.inside_triangle(bu, bv)             # [LEAF, 256]
+            warp = (lambda m: m.reshape(pi.LEAF, -1, WARP_RAYS).any(-1)
+                    .repeat_interleave(WARP_RAYS, 1))
+            tested = warp((bu >= 0) & (bu <= 1)) & warp(inside)
+            ok = tested & inside & (t > 0) & (t < best_t)
+            t_ok = torch.where(ok, t, pi.BIG)
+            tmin = t_ok.amin(0, keepdim=True)
+            win = torch.where(t_ok <= tmin, rows, float(pi.LEAF)).amin(
+                0, keepdim=True)
+            better = tmin < best_t
+            best_i = torch.where(better, float(cid * pi.LEAF) + win, best_i)
+            best_t = torch.where(better, tmin, best_t)
+        out[0, s * pi.RB_SUB:(s + 1) * pi.RB_SUB] = best_t[0]
+        out[1, s * pi.RB_SUB:(s + 1) * pi.RB_SUB] = best_i[0]
+    return out
+
+
+def lanes_passing_bu(counts, lists, rays_, tris):
+    """For every (warp, listed triangle) of the sweep, how many of the
+    warp's rays have 0 <= bu <= 1: a flat int tensor."""
+    npad = rays_.shape[1]
+    n_clusters = tris.shape[0] // pi.LEAF
+    tri9 = tris[:, :9].reshape(n_clusters, pi.LEAF, 9)
+    got = []
+    for s in range(npad // pi.RB_SUB):
+        r = rays_[:, s * pi.RB_SUB:(s + 1) * pi.RB_SUB]
+        count = int(counts[s])
+        for k in range(n_clusters if count < 0 else count):
+            cid = k if count < 0 else int(lists[s, min(k, lists.shape[1] - 1)])
+            bu, _, _ = pi.moller_trumbore(tri9[cid], *(r[i][None]
+                                                       for i in range(6)))
+            p = ((bu >= 0) & (bu <= 1)).reshape(pi.LEAF, -1, WARP_RAYS)
+            got.append(p.sum(-1).flatten())
+    return torch.cat(got)
+
+
+def signed_zero_batch():
+    """(aabb8, rays, n_bits): boxes with -0 / +0 bounds and rays whose
+    origins sit on those bounds, directions +-0, at the clamp and NaN, row 6
+    +-0, 1 or NaN. Their slab values are -0 / +0 pairs, where a
+    NaN-propagating min or max may return either zero."""
+    rng = np.random.default_rng(74)
+    faces = np.float32([-0.0, 0.0, 1.0, -1.0])
+    lo = rng.choice(faces, (40, 3))
+    hi = np.maximum(lo, rng.choice(faces, (40, 3)))
+    hi = np.where((hi == 0) & (lo == 0), np.float32(0.0), hi)  # -0 .. +0
+    lo[::3] = np.where(lo[::3] == 0, np.float32(-0.0), lo[::3])
+    aabb = np.zeros((64, 8), np.float32)
+    aabb[:, 0:3], aabb[:, 3:6] = pi.BIG, -pi.BIG
+    aabb[:40, 0:3], aabb[:40, 3:6] = lo, hi
+    n = 2048
+    o = rng.choice(np.float32([-0.0, 0.0, 1.0, -1.0, 0.5]), (n, 3))
+    d = rng.choice(np.float32([-0.0, 0.0, 1.0, -1.0, 1e-30, -1e-31, np.nan]),
+                   (n, 3))
+    r, _, _ = pi.pack_rays(torch.from_numpy(o), torch.from_numpy(d))
+    r[6] = torch.from_numpy(rng.choice(np.float32([0.0, -0.0, 1.0, np.nan]),
+                                       r.shape[1]))
+    return torch.from_numpy(aabb), r, 40
+
+
+def mask_batch(case: str, tmax_row: bool):
+    """(aabb8, rays, n_bits) of one adversarial K1 case on the CPU. For
+    "signed_zeros", signed_zero_batch(); else the cluster boxes of
+    `triangles()` plus 45 random boxes (n_bits not a multiple of 32; two
+    boxes with +-0 bounds) and the rays of the case. With tmax_row, row 6
+    of the latter holds bounds that are finite, equal to a slab entry, +-0,
+    negative, BIG and NaN."""
+    if case == "signed_zeros":
+        return signed_zero_batch()
+    aabb, n_bits = cluster_boxes(triangles(), extra=45)
+    r = rays(case)
+    if tmax_row:
+        rng = np.random.default_rng(73)
+        n = r.shape[1]
+        tmax = rng.uniform(0, 8, n).astype(np.float32)
+        # rays straight down from z = 5 enter the flat boxes at t = 5
+        tmax[0::6] = 5.0
+        tmax[1::6] = np.float32(-0.0)
+        tmax[2::11] = 0.0
+        tmax[3::13] = -1.0
+        tmax[4::7] = pi.BIG
+        tmax[5::17] = np.nan
+        r[6] = torch.from_numpy(tmax)
+        r[0:3, 0::6] = torch.tensor([3.5, 2.5, 5.0])[:, None]
+        r[3:6, 0::6] = torch.tensor([0.0, 0.0, -1.0])[:, None]
+    return torch.from_numpy(aabb), r, n_bits
+
+
+MASK_CASES = ("nan_lanes", "zero_dirs", "shared_edges", "one_lane",
+              "signed_zeros")

@@ -17,6 +17,7 @@ import torch
 from raytracer_odin_tpu_torch.ops import culling, light_cull
 from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
 from raytracer_odin_tpu_torch.ops import traverse
+import kernel_batches as kb
 
 
 @pytest.fixture
@@ -128,6 +129,40 @@ def test_sweep_kernel_bit_equal(cuda):
     torch.cuda.synchronize()
     assert pi.intersect_culled_rows.launches == before + 1
     assert int((got[1] >= 0).sum()) > 1000
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", kb.MASK_CASES)
+@pytest.mark.parametrize("tmax_row", [False, True])
+def test_mask_kernel_adversarial(cuda, case, tmax_row):
+    """K1 and K1-tmax on tests/kernel_batches.py's adversarial batches: NaN
+    dead lanes, +-0 and clamped direction components, rays through shared
+    edges and vertices of flat boxes, -0 / +0 slab bounds, n_bits not a
+    multiple of 32, tmax bounds at a slab entry, +-0, BIG and NaN."""
+    aabb, rays, n_bits = (x.to(cuda) if torch.is_tensor(x) else x
+                          for x in kb.mask_batch(case, tmax_row))
+    got = pi.cluster_masks_rows(aabb, rays, n_bits, tmax_row=tmax_row)
+    want = pi._cluster_masks_plain(aabb, rays, n_bits, tmax_row)
+    torch.cuda.synchronize()
+    assert bool(want.any())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", kb.SWEEP_CASES)
+def test_sweep_kernel_adversarial(cuda, case):
+    """K2 on tests/kernel_batches.py's adversarial batches: NaN dead lanes,
+    zero direction components, counts -1 and 0, one-entry lists, equal t in
+    two listed clusters, rays through shared edges and vertices, and warps
+    where one lane alone passes the bu test (the warp skips)."""
+    tris, counts, lists, rays = (x.to(cuda) for x in kb.sweep_batch(case))
+    before = pi.intersect_culled_rows.launches
+    got = pi.intersect_culled_rows(tris, counts, lists, rays)
+    want = pi._culled_plain(counts, lists, rays, tris)
+    torch.cuda.synchronize()
+    assert pi.intersect_culled_rows.launches == before + 1
+    assert int((want[1] >= 0).sum()) > 50
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 

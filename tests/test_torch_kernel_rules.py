@@ -1,0 +1,205 @@
+"""The exactness arguments of the port's redesigned CUDA kernels K1 (mask)
+and K2 (culled sweep), checked on the CPU on adversarial float32 values:
+NaN, +-0, +-inf, subnormals, BIG pad rows and direction components at the
+1e-30 clamp.
+
+* K2's warp skip: a warp skips the rest of a triangle's test when no ray of
+  it has 0 <= bu <= 1. That is exact because the inside test, as the plain
+  sweep computes it (`pallas_intersect.inside_triangle`), implies
+  0 <= bu <= 1. The second skip, after bv when no ray is inside, needs no
+  argument; a CPU model of both (`kernel_batches.k2_with_warp_skips`) is
+  held bit-equal to the plain sweep.
+* K1's PTX min.NaN / max.NaN: they propagate NaN as torch.minimum /
+  torch.maximum do, but for a -0 / +0 pair may return the other zero. A
+  numpy model of K1 with each choice of zero gives the plain version's
+  words.
+
+The CUDA kernels themselves are held against the plain versions on the
+card (tests/test_torch_gpu.py, same batches)."""
+
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
+import kernel_batches as kb
+
+F32 = np.float32
+SUB = np.nextafter(F32(0), F32(1))     # smallest subnormal
+TINY_N = np.finfo(F32).tiny            # smallest normal
+SPECIAL = np.array([
+    0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, -1.0, 0.5, 2.0, 3.0, 0.25,
+    np.nextafter(F32(1), F32(2)), np.nextafter(F32(1), F32(0)),
+    SUB, -SUB, TINY_N, -TINY_N, TINY_N - SUB, 2.0 ** -24, 2.0 ** -25,
+    1e-30, -1e-30, 1e30, -1e30, pi.BIG, -pi.BIG, np.finfo(F32).max,
+    -np.finfo(F32).max,
+], F32)
+
+
+def _ulps_around(x, k):
+    out = [F32(x)]
+    for _ in range(k):
+        out.append(np.nextafter(out[-1], F32(np.inf)))
+    lo = F32(x)
+    for _ in range(k):
+        lo = np.nextafter(lo, F32(-np.inf))
+        out.append(lo)
+    return np.array(out, F32)
+
+
+def _skip_pairs(case):
+    """(bu, bv) float32 tensors of one case of the warp-skip argument."""
+    if case == "special_pairs":
+        bu, bv = np.meshgrid(SPECIAL, SPECIAL)
+    elif case == "near_one":
+        # bu within 6 ulp of 0 and 1, bv tiny, subnormal, +-0 or near 1
+        bus = np.concatenate([_ulps_around(1.0, 6), _ulps_around(0.0, 6)])
+        bvs = np.concatenate([SPECIAL, _ulps_around(0.0, 6),
+                              _ulps_around(1.0, 6), _ulps_around(2.0 ** -24, 3)])
+        bu, bv = np.meshgrid(bus, bvs)
+    elif case == "sweep_terms":
+        # bu, bv as the plain sweep computes them: every adversarial ray
+        # batch against every triangle row, BIG pad rows included
+        tris = torch.from_numpy(kb.triangles())
+        tri9 = tris[:, :9]
+        bus, bvs = [], []
+        for rc in ("nan_lanes", "zero_dirs", "shared_edges", "one_lane"):
+            r = kb.rays(rc)
+            bu, bv, _ = pi.moller_trumbore(tri9, *(r[i][None]
+                                                   for i in range(6)))
+            bus.append(bu.flatten())
+            bvs.append(bv.flatten())
+        return torch.cat(bus), torch.cat(bvs)
+    else:
+        raise ValueError(case)
+    return (torch.from_numpy(np.ascontiguousarray(bu, F32).ravel()),
+            torch.from_numpy(np.ascontiguousarray(bv, F32).ravel()))
+
+
+def _check_skip(bu, bv):
+    inside = pi.inside_triangle(bu, bv)
+    passes = (bu >= 0) & (bu <= 1)
+    assert bool(passes[inside].all()), (bu[inside & ~passes],
+                                        bv[inside & ~passes])
+    return inside
+
+
+@settings(max_examples=3000, deadline=None, derandomize=True, database=None)
+@given(st.floats(width=32), st.floats(width=32))
+def _check_skip_drawn(bu, bv):
+    _check_skip(torch.tensor([bu], dtype=torch.float32),
+                torch.tensor([bv], dtype=torch.float32))
+
+
+@pytest.mark.parametrize("case", ["special_pairs", "near_one", "sweep_terms",
+                                  "hypothesis"])
+def test_inside_implies_warp_skip_predicate(case):
+    """Wherever the plain sweep's inside test holds, 0 <= bu <= 1 holds:
+    a warp with no ray at 0 <= bu <= 1 has no ray inside."""
+    if case == "hypothesis":
+        _check_skip_drawn()
+        return
+    bu, bv = _skip_pairs(case)
+    inside = _check_skip(bu, bv)
+    assert bool(inside.any()) and not bool(inside.all())
+    if case == "sweep_terms":
+        assert bool(torch.isnan(bu).any()) and bool(torch.isinf(bu).any())
+
+
+@pytest.mark.parametrize("case", kb.SWEEP_CASES)
+def test_warp_skip_model_matches_plain_sweep(case):
+    """The CPU model of K2's two warp skips gives the plain sweep's hits
+    bit for bit on every adversarial batch."""
+    tris, counts, lists, r = kb.sweep_batch(case)
+    want = pi._culled_plain(counts, lists, r, tris)
+    got = kb.k2_with_warp_skips(counts, lists, r, tris)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert int((want[1] >= 0).sum()) > 50
+    if case == "one_lane":
+        # some warp has exactly one ray passing bu for a listed triangle
+        assert bool((kb.lanes_passing_bu(counts, lists, r, tris) == 1).any())
+    if case == "equal_t":
+        # the copy of the mesh rows gives equal t in two listed clusters:
+        # blocks listing the copy first report it
+        hit = want[1] >= 0
+        assert bool((hit & (want[1] >= 2 * pi.LEAF)
+                     & (want[1] < 4 * pi.LEAF)).any())
+        assert bool((hit & (want[1] < 2 * pi.LEAF)).any())
+
+
+# ---------------------------------------------------------------------------
+# K1: NaN-propagating min / max whose zero results differ in sign.
+# ---------------------------------------------------------------------------
+
+ZERO_RULES = {
+    # (min of a -0 / +0 pair, max of it): IEEE 754-2019 minimum/maximum,
+    # the reverse, and either operand
+    "ieee": (lambda a, b: F32(-0.0), lambda a, b: F32(0.0)),
+    "reversed": (lambda a, b: F32(0.0), lambda a, b: F32(-0.0)),
+    "first": (lambda a, b: a, lambda a, b: a),
+    "second": (lambda a, b: b, lambda a, b: b),
+}
+
+
+def _nan_min_max(rule):
+    zmin, zmax = ZERO_RULES[rule]
+
+    def fmin(a, b):
+        both = (a == 0) & (b == 0)
+        return np.where(both, zmin(a, b), np.minimum(a, b)).astype(F32)
+
+    def fmax(a, b):
+        both = (a == 0) & (b == 0)
+        return np.where(both, zmax(a, b), np.maximum(a, b)).astype(F32)
+
+    return fmin, fmax
+
+
+def _k1_model(aabb, rays, n_bits, tmax_row, rule):
+    """K1's words in numpy float32, min/max with the zero rule `rule`.
+    Also returns how many min/max operand pairs were -0 / +0."""
+    fmin, fmax = _nan_min_max(rule)
+    aabb, rays = aabb.numpy(), rays.numpy()
+    n_words = aabb.shape[0] // 32
+    lo = aabb[:n_bits, 0:3, None]
+    hi = aabb[:n_bits, 3:6, None]
+    o = rays[None, 0:3]
+    d = rays[3:6]
+    tiny = F32(pi.TINY)
+    d = np.where(np.abs(d) >= tiny, d, np.where(d < 0, -tiny, tiny))
+    with np.errstate(all="ignore"):
+        iv = (F32(1) / d.astype(F32))[None]
+        t1 = ((lo - o) * iv).astype(F32)
+        t2 = ((hi - o) * iv).astype(F32)
+    signed = int(((t1 == 0) & (t2 == 0)
+                  & (np.signbit(t1) != np.signbit(t2))).sum())
+    tn, tx = fmin(t1, t2), fmax(t1, t2)
+    near = fmax(fmax(tn[:, 0], tn[:, 1]), tn[:, 2])
+    far = fmin(fmin(tx[:, 0], tx[:, 1]), tx[:, 2])
+    with np.errstate(invalid="ignore"):
+        hit = (near <= far) & (far >= 0)
+        if tmax_row:
+            hit &= near <= rays[6][None]
+    words = np.zeros((n_words, rays.shape[1]), np.int64)
+    for b in range(n_bits):
+        words[b // 32] |= hit[b].astype(np.int64) << (b % 32)
+    words = ((words + 2 ** 31) % 2 ** 32 - 2 ** 31).astype(np.int32)
+    return torch.from_numpy(words), signed
+
+
+@pytest.mark.parametrize("rule", sorted(ZERO_RULES))
+@pytest.mark.parametrize("case", kb.MASK_CASES)
+@pytest.mark.parametrize("tmax_row", [False, True])
+def test_nan_min_max_zero_sign_keeps_mask_bits(rule, case, tmax_row):
+    """K1's words do not depend on which zero a NaN-propagating min or max
+    returns for a -0 / +0 pair: they equal the plain version's under every
+    rule."""
+    aabb, r, n_bits = kb.mask_batch(case, tmax_row)
+    want = pi._cluster_masks_plain(aabb, r, n_bits, tmax_row)
+    got, signed = _k1_model(aabb, r, n_bits, tmax_row, rule)
+    assert torch.equal(got, want)
+    assert bool(want.any())
+    if case == "signed_zeros":
+        assert signed > 0
