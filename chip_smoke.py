@@ -6,9 +6,11 @@ wall time:
 
   1. card      name and power limit (nvidia-smi)
   2. build     the CUDA kernels K1-K5 (nvcc, ptxas -v report: registers a
-               thread) and the host lib; SASS instructions a test in each
-               sweep's and K1's inner loop (cuobjdump -sass, sass_counts;
-               the SASS is written next to the renders as sass.txt)
+               thread; K2, K3 and K4 are instances of one sweep kernel)
+               and the host lib; SASS instructions a test in each sweep
+               instance's and K1's inner loop (cuobjdump -sass,
+               sass_counts; the SASS is written next to the renders as
+               sass.txt)
   3. scene     the demo scene through the port's own assets, glTF reader
                and finish_scene(device="cuda")
   4. kernels   K1 (mask) and K2 (sweep) against their plain PyTorch
@@ -34,8 +36,12 @@ wall time:
        city       811 clusters, two-level layout (g = 4): K1 and K2 over
                   chunk-major lists
        city24     city with blocks=24, 207,234 triangles, streamed: K1 and
-                  K4 (streamed sweep; blocks that overflow their lists are
-                  counted on every bounce of one more step)
+                  K4 (streamed sweep over uncapped lists; at bounces 0 and
+                  1, K4 over these lists against K4 over the capped lists
+                  of the JAX package's rule, count -1 beyond 256 clusters,
+                  on the whole batch, bit for bit, with both times; the
+                  lists beyond the cap, and their lengths, are counted on
+                  every bounce of one more step)
        brute      the demo with intersector="pallas_brute": K3 only,
                   uncompacted; the cube golden image through K3
   8. twophase    the demo at 1920x1080, depth 8, with two-phase culling
@@ -54,8 +60,9 @@ wall time:
  10. with --profile: one more step of each path under torch.profiler,
      device time by kernel class and the device's busy share
  11. the kernels JSON line (K1-K5 and K1 with its tmax row; each with its
-     design generation and registers, K1, K1-tmax and K2 with their SASS
-     counts, SM clock and issue floors), then the {"ok": true, ...} line.
+     design generation and registers, K1-K4 and K1-tmax with their SASS
+     counts, SM clock and issue floors, K2-K4 with their warp-vote rates),
+     then the {"ok": true, ...} line.
 
 The check phase renders the four golden images of tests/golden/ through
 "pallas" (cube and cornell at rtol 1e-3, atol 1e-4; the glossy textured and
@@ -122,17 +129,24 @@ SASS_MAX_PATHS = 4096
 # opcode that occurs a fixed number of times in each of its tests (the
 # slab test's 6 products; the triangle test's one reciprocal): it counts
 # the tests an iteration of the kernel's inner loop holds.
+# K2, K3 and K4 are instances of culled_kernel<rays a list, every cluster,
+# triangles a step>.
 KERNEL_SYMBOLS = {"K1": "mask_kernelILb0E", "K1 tmax": "mask_kernelILb1E",
-                  "K2": "culled_kernel", "K3": "brute_kernel",
-                  "K4": "stream_kernel", "K5": "light_kernel"}
+                  "K2": "culled_kernelILi256ELb0ELi4E",
+                  "K3": "culled_kernelILi512ELb1ELi2E",
+                  "K4": "culled_kernelILi512ELb0ELi4E", "K5": "light_kernel"}
 SASS_MARKERS = {"K1": ("FMUL", 6), "K1 tmax": ("FMUL", 6),
                 "K2": ("MUFU.RCP", 1), "K3": ("MUFU.RCP", 1),
                 "K4": ("MUFU.RCP", 1)}
 # Each kernel's design, a label: the first port, or the Hopper redesign of
-# K1 and K2 (csrc/intersect_kernels.cu says what each design does).
+# K1 and of the sweep of K2, K3 and K4 (csrc/intersect_kernels.cu says what
+# each design does).
 DESIGN = {"K1": "hopper-redesign", "K1 tmax": "hopper-redesign",
-          "K2": "hopper-redesign", "K3": "first-port", "K4": "first-port",
-          "K5": "first-port"}
+          "K2": "hopper-redesign", "K3": "hopper-redesign",
+          "K4": "hopper-redesign", "K5": "first-port"}
+# The list cap of traverse.sweep_lists (its default): a streamed cast's
+# lists beyond it are uncapped ascending ids, the JAX package's count -1.
+LIST_CAP = 256
 # The demo frame of bench.py, and the timed steps after calibration.
 WIDTH, HEIGHT, DEPTH = 1920, 1080, 8
 STEPS = 5
@@ -463,14 +477,15 @@ def add_floors(m: dict, sass: dict, mhz, n_sm: int) -> dict:
     return out
 
 
-def warp_vote_rates(pi, counts, lists, rays, tris):
-    """K2's warp skips on this batch: the share of (warp, listed triangle)
-    pairs in which some ray of the warp (32 lanes, a ray each) has
-    0 <= bu <= 1 (passes the first vote) and in which some ray is inside
-    (passes the second), from the plain version's own terms."""
+def warp_vote_rates(pi, counts, lists, rays, tris, block):
+    """The sweep's warp skips on this batch of `block`-ray lists: the share
+    of (warp, listed triangle) pairs in which some ray of the warp (32
+    lanes, a ray each) has 0 <= bu <= 1 (passes the first vote) and in
+    which some ray is inside (passes the second), from the plain version's
+    own terms."""
     import torch
 
-    block, leaf = pi.RB_SUB, pi.LEAF
+    leaf = pi.LEAF
     nsb = rays.shape[1] // block
     n_clusters = tris.shape[0] // leaf
     tri9 = tris[:, :9].reshape(n_clusters, leaf, 9)
@@ -537,9 +552,13 @@ def measure_sweep(pi, trav, scene, words, rays, g, n_super, dev, reps,
                   slice_blocks=None, clock=False):
     """The list sweep of `scene` on the lists the main path builds for
     (words, rays): K4 for a streamed scene, K2 otherwise. Bit equality with
-    the plain version (on the first `slice_blocks` 512-ray blocks when
-    given), times and the bound from this batch's list lengths; with
-    `clock`, the SM clock under its load."""
+    the plain version (on the `slice_blocks` 512-ray blocks mid-batch when
+    given), times, the bound from this batch's list lengths and the
+    warp-vote rates (on the slice when given); with `clock`, the SM clock
+    under its load. For a streamed scene also K4 over the capped lists of
+    the JAX package's rule (count -1 beyond LIST_CAP clusters) on the whole
+    batch: its hits bit-equal to those over the uncapped lists, its time,
+    and its bound from its own inputs."""
     import torch
 
     counts, lists = trav.sweep_lists(scene, words, rays, g, n_super)
@@ -555,25 +574,34 @@ def measure_sweep(pi, trav, scene, words, rays, g, n_super, dev, reps,
     s_rays = rays[:, a:b].contiguous()
     want = pi._culled_plain(s_counts, s_lists, s_rays, tris, block)
     sync(dev)
+    name = "K4" if scene.stream else "K2"
     if not torch.equal(got[:, a:b].view(torch.int32),
                        want.view(torch.int32)):
         raise AssertionError(
-            f"{'K4' if scene.stream else 'K2'} differs from its plain "
-            f"version in {int((got[:, a:b] != want).sum())} values")
+            f"{name} differs from its plain version in "
+            f"{int((got[:, a:b] != want).sum())} values")
     n_clusters = tris.shape[0] // pi.LEAF
-    swept = int(torch.where(counts < 0, n_clusters, counts).sum())
+
+    def work(c, lst):
+        """(clusters swept, ray-triangle tests, bound ms, bound by) of a
+        sweep of lists (c, lst)."""
+        swept = int(torch.where(c < 0, n_clusters, c).sum())
+        nbytes = (6 * 4 * n + 8 * 4 * n + c.numel() * 4 + lst.numel() * 4
+                  + tris.numel() * 4)
+        tests = swept * pi.LEAF * block
+        return (swept, tests) + bound_ms(nbytes, K2_OPS_PER_TEST * tests)
+
+    swept, tests, b_ms, b_by = work(counts, lists)
     ms = time_ms(lambda: kernel(tris, counts, lists, rays), dev, reps)
     plain_ms = time_ms(
         lambda: pi._culled_plain(s_counts, s_lists, s_rays, tris, block),
         dev, 1)
-    nbytes = (6 * 4 * n + 8 * 4 * n + counts.numel() * 4 + lists.numel() * 4
-              + tris.numel() * 4)
-    tests = swept * pi.LEAF * block
-    b_ms, b_by = bound_ms(nbytes, K2_OPS_PER_TEST * tests)
+    # lists beyond the cap: count -1, or a streamed cast's uncapped list
+    over = (counts < 0) | ((counts > LIST_CAP) & scene.stream)
     out = {"rays": n, "hits": int((got[1] >= 0).sum()),
            "ray_triangle_tests": tests, "list_rays": block,
-           "lists": counts.numel(),
-           "overflow_lists": int((counts < 0).sum()),
+           "lists": counts.numel(), "list_width": lists.shape[1],
+           "overflow_lists": int(over.sum()),
            "mean_list": swept / counts.numel(), "ms": ms,
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
            # t is BIG on both sides of a miss
@@ -581,13 +609,37 @@ def measure_sweep(pi, trav, scene, words, rays, g, n_super, dev, reps,
     if clock and dev.type == "cuda":
         out["sm_clock_mhz"] = sm_clock_mhz(
             lambda: kernel(tris, counts, lists, rays), ms, dev)
-    if not scene.stream and b - a == n:
-        out["vote_rates"] = warp_vote_rates(pi, counts, lists, rays, tris)
+    out["vote_rates"] = warp_vote_rates(pi, s_counts, s_lists, s_rays, tris,
+                                        block)
     if b - a < n:
+        out["vote_rates_on"] = "plain_slice"
         out["plain_slice"] = [a, b]
         out["slice_hits"] = int((want[1] >= 0).sum())
         out["slice_ms"] = time_ms(
             lambda: kernel(tris, s_counts, s_lists, s_rays), dev, reps)
+    if scene.stream:
+        long_ = counts[counts > LIST_CAP].float()
+        out["overflow_mean_list"] = (float(long_.mean()) if long_.numel()
+                                     else None)
+        out["overflow_max_list"] = (int(long_.max()) if long_.numel()
+                                    else None)
+        # the JAX package's rule: count -1 beyond the cap (the kernel reads
+        # no list entry of such a row)
+        c0 = torch.where(counts > LIST_CAP, -1, counts)
+        l0 = lists[:, :LIST_CAP].contiguous()
+        got0 = kernel(tris, c0, l0, rays)
+        sync(dev)
+        if not torch.equal(got.view(torch.int32), got0.view(torch.int32)):
+            raise AssertionError(
+                f"K4 over the uncapped lists differs from K4 over the "
+                f"capped lists in {int((got != got0).sum())} values")
+        swept0, tests0, b0_ms, b0_by = work(c0, l0)
+        out["capped"] = {
+            "bit_equal": True, "overflow_lists": int((c0 < 0).sum()),
+            "mean_list": swept0 / c0.numel(), "ray_triangle_tests": tests0,
+            "ms": time_ms(lambda: kernel(tris, c0, l0, rays), dev,
+                          max(2, reps // 4)),
+            "bound_ms": b0_ms, "bound_by": b0_by}
     return out
 
 
@@ -601,9 +653,11 @@ def slice_of(n, blocks, rb):
     return a, a + blocks * rb
 
 
-def measure_k3(pi, scene, rays, dev, reps, slice_blocks):
-    """K3 on `rays`: bit equality with the plain version on the first
-    `slice_blocks` blocks, times and bound (every cluster for every ray)."""
+def measure_k3(pi, scene, rays, dev, reps, slice_blocks, clock=False):
+    """K3 on `rays`: bit equality with the plain version on the
+    `slice_blocks` blocks mid-batch, times, bound (every cluster for every
+    ray) and the warp-vote rates on the slice; with `clock`, the SM clock
+    under its load."""
     import torch
 
     tris = scene.ptri
@@ -625,12 +679,21 @@ def measure_k3(pi, scene, rays, dev, reps, slice_blocks):
     tests = n * tris.shape[0]
     b_ms, b_by = bound_ms(6 * 4 * n + 8 * 4 * n + tris.numel() * 4,
                           K2_OPS_PER_TEST * tests)
-    return {"rays": n, "hits": int((got[1] >= 0).sum()),
-            "ray_triangle_tests": tests, "ms": ms, "slice_ms": slice_ms,
-            "plain_ms": plain_ms, "plain_slice": [a, b],
-            "slice_hits": int((want[1] >= 0).sum()),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err": float((got[:2, a:b] - want[:2]).abs().max())}
+    nb = s_rays.shape[1] // pi.RB
+    every = torch.full((nb,), -1, dtype=torch.int32, device=rays.device)
+    out = {"rays": n, "hits": int((got[1] >= 0).sum()),
+           "ray_triangle_tests": tests, "ms": ms, "slice_ms": slice_ms,
+           "plain_ms": plain_ms, "plain_slice": [a, b],
+           "slice_hits": int((want[1] >= 0).sum()),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "max_abs_err": float((got[:2, a:b] - want[:2]).abs().max()),
+           "vote_rates": warp_vote_rates(pi, every, every[:, None], s_rays,
+                                         tris, pi.RB),
+           "vote_rates_on": "plain_slice"}
+    if clock and dev.type == "cuda":
+        out["sm_clock_mhz"] = sm_clock_mhz(
+            lambda: pi.intersect_brute_rows(tris, rays), ms, dev)
+    return out
 
 
 def measure_k5(lc, scene, o, d, dev, reps, slice_blocks):
@@ -814,20 +877,26 @@ def check_frame(res, h, w):
 
 def sweep_census(trav, step, scene, stats, key, sample, dev):
     """One more render step with traverse.sweep_lists recording the lists
-    it builds: per cast, the lists, the lists that overflow (count -1:
-    every cluster swept) and the mean list length. Kernel wrappers and
-    their counts are untouched."""
+    it builds: per cast, the lists, those beyond LIST_CAP clusters, the
+    mean clusters a list sweeps, the mean and the longest uncapped length
+    of the lists beyond the cap (None where there is none), and the mean a
+    list would sweep under the capped rule (count -1: every cluster).
+    Kernel wrappers and their counts are untouched."""
     import torch
 
     real = trav.sweep_lists
     seen = []
 
-    def record(scene_, words, rays, g, n_super, cap=256):
+    def record(scene_, words, rays, g, n_super, cap=LIST_CAP):
         counts, lists = real(scene_, words, rays, g, n_super, cap)
         nc = scene_.cluster_lo.shape[0]
-        seen.append((counts.numel(), int((counts < 0).sum()),
-                     float(torch.where(counts < 0, nc,
-                                       counts).float().mean())))
+        over = (counts < 0) | (counts > cap)
+        swept = torch.where(counts < 0, nc, counts).float()
+        long_ = swept[over]
+        seen.append((counts.numel(), int(over.sum()), float(swept.mean()),
+                     float(long_.mean()) if long_.numel() else None,
+                     int(long_.max()) if long_.numel() else None,
+                     float(torch.where(over, nc, swept).mean())))
         return counts, lists
 
     trav.sweep_lists = record
@@ -837,6 +906,19 @@ def sweep_census(trav, step, scene, stats, key, sample, dev):
     finally:
         trav.sweep_lists = real
     return seen
+
+
+def sweep_instance(name: str) -> str:
+    """The profile bucket of a sweep kernel from its (lower-case) name:
+    culled_kernel<256, false, ...> is K2, <512, false, ...> K4,
+    <512, true, ...> K3."""
+    m = (re.search(r"culled_kernel<(\d+), (true|false),", name)
+         or re.search(r"culled_kernelili(\d+)elb([01])e", name))
+    if m is None:
+        return "sweep (other)"
+    every = m.group(2) in ("true", "1")
+    return ("K3 brute" if every else "K2 sweep" if m.group(1) == "256"
+            else "K4 stream")
 
 
 def profile_step(rt, stats, scene, cfg, fov_x, schedule, dev, name):
@@ -874,9 +956,7 @@ def profile_step(rt, stats, scene, cfg, fov_x, schedule, dev, name):
     for e in kern:
         name = e.key.lower()
         b = ("K1 mask" if "mask_kernel" in name
-             else "K2 sweep" if "culled_kernel" in name
-             else "K3 brute" if "brute_kernel" in name
-             else "K4 stream" if "stream_kernel" in name
+             else sweep_instance(name) if "culled_kernel" in name
              else "K5 light" if "light_kernel" in name
              else "sort" if ("sort" in name or "radix" in name)
              else "gather/scatter" if ("index" in name or "gather" in name
@@ -1062,7 +1142,7 @@ def main(argv=None) -> int:
         checks = {}
         if name == "brute":
             checks["K3 bounce 0"] = measure_k3(pi, pscene, rays0, dev, reps,
-                                               slice_blocks)
+                                               slice_blocks, clock=True)
         else:
             pk = kernel_batches(rt, integ, trav, prng, pi, pscene, pcfg,
                                 pfov, dev)
@@ -1073,7 +1153,8 @@ def main(argv=None) -> int:
             for b in (0, 1):
                 checks[f"{sweep} bounce {b}"] = measure_sweep(
                     pi, trav, pscene, pk[f"words{b}"], pk[f"rays{b}"], g_,
-                    n_super_, dev, reps, slice_)
+                    n_super_, dev, reps, slice_,
+                    clock=pscene.stream and b == 1)
             if pscene.num_lights >= lc.LIGHT_CULL_MIN:
                 checks["K5 bounce 0"] = measure_k5(
                     lc, pscene, pk["shade_o"], pk["shade_d"], dev, reps,
@@ -1109,8 +1190,10 @@ def main(argv=None) -> int:
                                   prng.key_from_seed(pcfg.seed),
                                   path_steps, dev)
             info["census"] = census
-            print(f"  [{name}] lists per cast (lists, overflowing, mean "
-                  f"length) over one more step: {census}", flush=True)
+            print(f"  [{name}] lists per cast (lists, beyond the cap, mean "
+                  f"swept, mean and longest length beyond the cap, mean "
+                  f"swept under the capped rule) over one more step: "
+                  f"{census}", flush=True)
         if args.profile:
             ps = time.perf_counter()
             profile_step(rt, pres.stats, pscene, pcfg, pfov,
@@ -1162,13 +1245,14 @@ def main(argv=None) -> int:
             "bound_by": main["bound_by"], "library_ms": None,
             "plain_is_yardstick": False, "card": card,
             "design": DESIGN[key], "registers": regs.get(key)}, **extra)
-        if key in ("K1", "K1 tmax", "K2"):
+        if key in SASS_MARKERS:
             # SASS a test, the SM clock under the kernel's load, and the
             # issue floors they give at the main shape
             out.update(sass=sass.get(key), sm_clock_mhz=main.get(
                 "sm_clock_mhz"), **{f: main[f] for f in (
-                    "vote_rates", "issue_floor_ms", "issue_floor_skip_ms",
-                    "issue_floor_data_ms") if f in main})
+                    "vote_rates", "vote_rates_on", "issue_floor_ms",
+                    "issue_floor_skip_ms", "issue_floor_data_ms")
+                    if f in main})
         return out
 
     n_sm = (torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1185,6 +1269,12 @@ def main(argv=None) -> int:
                       two["k1_tmax"].get("sm_clock_mhz"))
     k1_b0, k1_b1 = floored("K1", k1_b0, mhz1), floored("K1", k1_b1, mhz1)
     k2_b0, k2_b1 = floored("K2", k2_b0, mhz2), floored("K2", k2_b1, mhz2)
+    k3 = paths["brute"]["checks"]["K3 bounce 0"]
+    k3 = floored("K3", k3, k3.get("sm_clock_mhz"))
+    k4_b1 = paths["city24"]["checks"]["K4 bounce 1"]
+    mhz4 = k4_b1.get("sm_clock_mhz")
+    k4_b1 = floored("K4", k4_b1, mhz4)
+    k4_b0 = floored("K4", paths["city24"]["checks"]["K4 bounce 0"], mhz4)
 
     kernels = [
         # main entries: the demo's sorted, compacted bounce-1 batch (7 of a
@@ -1220,21 +1310,26 @@ def main(argv=None) -> int:
         # K3: the brute path's bounce-0 camera rays (every bounce sweeps
         # every cluster, uncompacted)
         entry("K3 intersect_brute_rows", "K3",
-              "raytracer_odin_tpu/ops/pallas_intersect.py:140",
-              paths["brute"]["checks"]["K3 bounce 0"],
+              "raytracer_odin_tpu/ops/pallas_intersect.py:140", k3,
               paths["brute"]["launches"]["K3"],
               {"launches_per_step": paths["brute"]["per_step"]["K3"][0],
                "launches_in_calibration":
-                   paths["brute"]["calibration"]["K3"]}),
-        # K4: city24's sorted, compacted bounce-1 batch
+                   paths["brute"]["calibration"]["K3"],
+               "rays": k3["rays"]}),
+        # K4: city24's sorted, compacted bounce-1 batch over its uncapped
+        # lists; capped_lists: the same batch over the capped lists of the
+        # JAX package's rule (bit-equal hits, its time and bound)
         entry("K4 intersect_stream_rows", "K4",
-              "raytracer_odin_tpu/ops/pallas_intersect.py:217",
-              paths["city24"]["checks"]["K4 bounce 1"],
+              "raytracer_odin_tpu/ops/pallas_intersect.py:217", k4_b1,
               paths["city24"]["launches"]["K4"],
               {"launches_per_step": paths["city24"]["per_step"]["K4"][0],
                "launches_in_calibration":
                    paths["city24"]["calibration"]["K4"],
-               "bounce0": paths["city24"]["checks"]["K4 bounce 0"]}),
+               "rays": k4_b1["rays"],
+               **{f: k4_b1[f] for f in (
+                   "mean_list", "overflow_lists", "overflow_mean_list",
+                   "overflow_max_list")},
+               "capped_lists": k4_b1["capped"], "bounce0": k4_b0}),
         # K5: citynight's bounce-0 shading batch (full frame)
         entry("K5 light_sums_rows", "K5",
               "raytracer_odin_tpu/ops/light_cull.py:103",

@@ -126,21 +126,29 @@ def unpack_mask(words, c: int):
 
 
 def build_lists(hit_mask, cap: int | None = None, near=None,
-                chunk: int | None = None):
+                chunk: int | None = None, overflow_ids: bool = False):
     """[NB, C] bool -> (counts [NB] i32, lists [NB, min(C, cap)] i32): the
     hit cluster ids of each row first, then the others. Order of the hit
     ids: ascending; with `near` [NB, C] (cull_clusters' entry distances)
     nearest-first, equal distances by ascending id (the JAX package's
     unstable sort leaves that tie order open); with `chunk` as well,
     chunk-major (id // chunk) and nearest-first within a chunk. Rows hitting
-    more than `cap` clusters get count -1 (sweep every cluster)."""
+    more than `cap` clusters get count -1 (sweep every cluster); with
+    overflow_ids they keep their true count and list their hit ids in
+    ascending order instead, and the lists widen to the longest count."""
     nb, c = hit_mask.shape
     dev = hit_mask.device
     ids = torch.arange(c, dtype=torch.int32, device=dev)
+    counts = hit_mask.sum(dim=-1).to(torch.int32)
+    capped = cap is not None and cap < c
     if near is None:
         key = torch.where(hit_mask, ids, c + ids)  # unique keys
         lists = torch.argsort(key, dim=-1)
     else:
+        if capped and overflow_ids:
+            # ids (exact in float32) in place of near on overflowing rows
+            over = (counts > cap)[:, None]
+            near = torch.where(over, ids.to(near.dtype), near)
         key = torch.where(hit_mask, near, torch.tensor(BIG, device=dev))
         lists = torch.sort(key, dim=-1, stable=True).indices
         if chunk is not None:
@@ -149,10 +157,13 @@ def build_lists(hit_mask, cap: int | None = None, near=None,
             lists = torch.gather(
                 lists, 1, torch.sort(ck, dim=-1, stable=True).indices)
     lists = lists.to(torch.int32)
-    counts = hit_mask.sum(dim=-1).to(torch.int32)
-    if cap is not None and cap < c:
-        counts = torch.where(counts > cap, -1, counts)
-        lists = lists[:, :cap]
+    if capped:
+        width = cap
+        if not overflow_ids:
+            counts = torch.where(counts > cap, -1, counts)
+        elif nb:
+            width = max(cap, int(counts.max()))
+        lists = lists[:, :width]
     return counts, lists.contiguous()
 
 

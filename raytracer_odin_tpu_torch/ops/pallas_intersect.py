@@ -13,9 +13,10 @@ next to a plain PyTorch version of each:
   * K4 `intersect_stream_rows` — the K2 sweep with one list per RB-ray
     block, for scenes above STREAM_TRIS (replaces `_culled_stream_kernel`).
 
-K2, K3 and K4 share one cluster test and winner rule (`_culled_plain`
-here; in CUDA, K3 and K4 share `sweep_block`, and K2, the main path's
-sweep, has a kernel of its own with warp skips that change no bit).
+K2, K3 and K4 share one cluster test and winner rule: `_culled_plain`
+here, and in CUDA one kernel, `culled_kernel`, of which each is an instance
+(its list width in rays, and K3's sweep of every cluster, are template
+parameters), with warp skips that change no bit.
 
 A wrapper launches its CUDA kernel for tensors on a CUDA device and counts
 the launch in its `launches` attribute; it runs the plain version only for
@@ -319,21 +320,30 @@ def _check_sweep(scene_tris, counts, lists, rays, block: int):
     return dev
 
 
-def _sweep_launch(entry, scene_tris, counts, lists, rays):
+def _sweep_launch(wrapper, entry, scene_tris, rays, counts=None,
+                  lists=None):
+    """Launch one instance of the sweep kernel (K2, K4 with their lists;
+    K3 without) into a new [8, Npad] output, counted in
+    `wrapper.launches`."""
     from raytracer_odin_tpu_torch.ops import cuda_build
 
+    if scene_tris.data_ptr() % 16:
+        # the kernel copies each cluster's rows in 16-byte pieces
+        raise ValueError("scene_tris must start on a 16-byte boundary")
     dev = rays.device
     npad = rays.shape[1]
     out = torch.empty((8, npad), dtype=torch.float32, device=dev)
     if npad == 0:
         return out
+    listed = (() if counts is None
+              else (counts.data_ptr(), lists.data_ptr(), lists.shape[1]))
     rc = getattr(cuda_build.load(), entry)(
-        counts.data_ptr(), lists.data_ptr(), lists.shape[1],
-        rays.data_ptr(), npad, scene_tris.data_ptr(),
+        *listed, rays.data_ptr(), npad, scene_tris.data_ptr(),
         scene_tris.shape[0] // LEAF, out.data_ptr(), _stream_of(dev),
     )
     if rc != 0:
         raise RuntimeError(f"{entry} failed: cudaError {rc}")
+    wrapper.launches += 1
     return out
 
 
@@ -347,12 +357,8 @@ def intersect_culled_rows(scene_tris, counts, lists, rays):
     dev = _check_sweep(scene_tris, counts, lists, rays, RB_SUB)
     if dev.type == "cpu":
         return _culled_plain(counts, lists, rays, scene_tris, RB_SUB)
-    if scene_tris.data_ptr() % 16:
-        # the kernel copies each cluster's rows in 16-byte pieces
-        raise ValueError("scene_tris must start on a 16-byte boundary")
-    out = _sweep_launch("rt_culled_launch", scene_tris, counts, lists, rays)
-    intersect_culled_rows.launches += 1
-    return out
+    return _sweep_launch(intersect_culled_rows, "rt_culled_launch",
+                         scene_tris, rays, counts, lists)
 
 
 intersect_culled_rows.launches = 0
@@ -364,15 +370,15 @@ intersect_culled_rows.launches = 0
 
 def intersect_stream_rows(scene_tris, counts, lists, rays):
     """intersect_culled_rows for streamed scenes (K4): one cluster list per
-    RB-ray block. counts [NB] int32 (-1: sweep every cluster), lists
-    [NB, C] int32, rays [8, Npad] RAY_EPS-offset rows, Npad a multiple of
-    RB. Returns [8, Npad] f32 rows (t, index as f32, 6 zero rows)."""
+    RB-ray block, of any length. counts [NB] int32 (-1: sweep every
+    cluster), lists [NB, C] int32, rays [8, Npad] RAY_EPS-offset rows, Npad
+    a multiple of RB. Returns [8, Npad] f32 rows (t, index as f32, 6 zero
+    rows)."""
     dev = _check_sweep(scene_tris, counts, lists, rays, RB)
     if dev.type == "cpu":
         return _culled_plain(counts, lists, rays, scene_tris, RB)
-    out = _sweep_launch("rt_stream_launch", scene_tris, counts, lists, rays)
-    intersect_stream_rows.launches += 1
-    return out
+    return _sweep_launch(intersect_stream_rows, "rt_stream_launch",
+                         scene_tris, rays, counts, lists)
 
 
 intersect_stream_rows.launches = 0
@@ -407,19 +413,8 @@ def intersect_brute_rows(scene_tris, rays):
         return _brute_plain(rays, scene_tris)
     if dev.type != "cuda":
         raise ValueError(f"intersect_brute_rows: unsupported device {dev}")
-    from raytracer_odin_tpu_torch.ops import cuda_build
-
-    out = torch.empty((8, npad), dtype=torch.float32, device=dev)
-    if npad == 0:
-        return out
-    rc = cuda_build.load().rt_brute_launch(
-        rays.data_ptr(), npad, scene_tris.data_ptr(),
-        scene_tris.shape[0] // LEAF, out.data_ptr(), _stream_of(dev),
-    )
-    if rc != 0:
-        raise RuntimeError(f"brute kernel launch failed: cudaError {rc}")
-    intersect_brute_rows.launches += 1
-    return out
+    return _sweep_launch(intersect_brute_rows, "rt_brute_launch",
+                         scene_tris, rays)
 
 
 intersect_brute_rows.launches = 0

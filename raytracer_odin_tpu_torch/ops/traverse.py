@@ -7,7 +7,8 @@ miss). Four intersectors:
 
   * "pallas" — exact culling through the kernels: K1 gives each ray its
     (super-)cluster mask, the masks are OR-ed per list block into cluster
-    lists, and K2 (resident scenes) or K4 (streamed scenes) sweeps them.
+    lists, and K2 (resident scenes) or K4 (streamed scenes, whose lists
+    are uncapped) sweeps them.
     Scenes above MAX_EXACT_CLUSTERS clusters take the two-level layout:
     mask bits cover super-clusters of g consecutive clusters, refined per
     block by the conservative interval cull. With TWO_PHASE_K > 0 a
@@ -150,7 +151,25 @@ def _sweep_exact(scene, words_packed, rays, g: int, n_super: int,
     g > 1 the JAX package's chunk lists are nearest-first and uncapped: one
     sweep equals its chunks, equal-t ties included, only over uncapped
     chunk-major lists (chunk, then near), which is what sweep_lists builds
-    for resident scenes above CHUNK_TRIS."""
+    for resident scenes above CHUNK_TRIS.
+
+    Streamed scenes' overflowing lists. Where a block's mask `bmask` holds
+    more than `cap` clusters, the JAX package gives it count -1: its kernel
+    sweeps every cluster in id order (the cap keeps the lists inside TPU
+    scalar prefetch). The port lists that block's `bmask` clusters in
+    ascending id order, uncapped, with their true count, and the hits are
+    the same bit for bit, equal-t ties included: a cluster outside `bmask`
+    holds no hit for any ray of the block, so it never changes a ray's
+    best t or index, and leaving it out keeps the other clusters in the
+    same relative (ascending id) order, so every ray meets the same hits
+    in the same order and strict min-t picks the same winner. The premise,
+    that `bmask` holds every cluster a ray of the block hits, is the one
+    every list that does not overflow already rests on, in both packages:
+    K1's exact slab masks (of the super-boxes at g > 1) and the
+    conservative interval cull `culling.cull_clusters`. A grazing hit on a
+    box face that the slab test rounds out would break it, and would
+    equally be lost from every listed block of either package (ROADMAP.md,
+    queue C)."""
     counts, lists = sweep_lists(scene, words_packed, rays, g, n_super, cap)
     if scene.stream:
         return pi.intersect_stream_rows(scene.ptri, counts, lists, rays)
@@ -169,7 +188,10 @@ def sweep_lists(scene, words_packed, rays, g: int, n_super: int,
     entry distance orders the survivors nearest-first. Streamed scenes and
     scenes of at most CHUNK_TRIS / LEAF clusters get one list capped at
     `cap` (count -1 beyond it: sweep every cluster); larger resident scenes
-    get uncapped chunk-major lists (see _sweep_exact)."""
+    get uncapped chunk-major lists (see _sweep_exact), and a streamed
+    scene's rows beyond `cap` list their clusters in ascending id order,
+    uncapped, with their true count (see _sweep_exact). At g == 1 no row
+    exceeds the default cap (n_super <= MAX_EXACT_CLUSTERS)."""
     lb = pi.list_block(scene)
     if g == 1:
         return exact_lists(words_packed, n_super, cap, lb)
@@ -185,7 +207,8 @@ def sweep_lists(scene, words_packed, rays, g: int, n_super: int,
     bmask = cmask & imask
     chunk_c = max(1, pi.CHUNK_TRIS // pi.LEAF)
     if scene.stream or n_clusters <= chunk_c:
-        return culling.build_lists(bmask, cap=cap, near=near)
+        return culling.build_lists(bmask, cap=cap, near=near,
+                                   overflow_ids=scene.stream)
     return culling.build_lists(bmask, near=near, chunk=chunk_c)
 
 

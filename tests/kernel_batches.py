@@ -1,5 +1,5 @@
-"""Adversarial inputs for the port's mask kernel (K1) and culled sweep (K2),
-and a CPU model of K2's warp skips.
+"""Adversarial inputs for the port's mask kernel (K1) and the sweep kernel
+of K2, K3 and K4, and a CPU model of the sweep's warp skips.
 
 The batches are built with numpy from a seed. Each holds what a sweep's
 rounding rules are most likely to get wrong: triangles of a grid mesh that
@@ -7,6 +7,9 @@ share edges and vertices, rays aimed exactly at those edges and vertices,
 a cluster repeated under another id (equal t in two listed clusters), BIG
 pad rows, dead lanes carrying NaN, direction components at +-0 and at the
 1e-30 clamp, and warps in which a single lane can pass the bu test.
+The sweep batches come in three forms, one per instance of the sweep
+kernel (SWEEPS): K2's 256-ray lists, K4's 512-ray lists, and K3's sweep of
+every cluster by every 512-ray block.
 `tests/test_torch_gpu.py` holds the CUDA kernels bit-equal to their plain
 versions on them; `tests/test_torch_kernel_rules.py` holds the warp-skip
 model bit-equal to the plain sweep on them, on the CPU. Neither imports
@@ -20,8 +23,12 @@ from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
 from raytracer_odin_tpu_torch.ops import traverse
 
 GRID = 8          # quads a side of each mesh: 128 triangles, 2 clusters
-WARP_RAYS = 32    # rays behind one K2 warp vote: 32 lanes, a ray each
-N_RAYS = 16 * pi.RB_SUB
+WARP_RAYS = 32    # rays behind one sweep warp vote: 32 lanes, a ray each
+N_RAYS = 16 * pi.RB_SUB  # whole 512-ray blocks
+# The sweep kernel's instances: rays a list, and whether every block
+# sweeps every cluster (no counts or lists).
+SWEEPS = {"K2": (pi.RB_SUB, False), "K4": (pi.RB, False),
+          "K3": (pi.RB, True)}
 
 
 def mesh_rows(z: float, flip: bool = False) -> np.ndarray:
@@ -127,25 +134,33 @@ def rays(case: str, seed: int = 72) -> torch.Tensor:
     return r
 
 
+RAY_CASES = ("nan_lanes", "zero_dirs", "shared_edges", "one_lane")
 SWEEP_CASES = ("nan_lanes", "zero_dirs", "shared_edges", "counts", "width1",
                "equal_t", "one_lane")
+# K3 reads no counts or lists: its batches differ only in their rays.
+KERNEL_CASES = ([(k, c) for k in ("K2", "K4") for c in SWEEP_CASES]
+                + [("K3", c) for c in RAY_CASES])
 
 
-def sweep_batch(case: str):
-    """(tris, counts, lists, rays) of one adversarial K2 case, on the CPU.
-    Lists come from the plain K1 masks (ascending ids) unless the case
-    makes its own: "counts" sets counts of -1 and 0, "width1" keeps one
-    entry a list with counts -1, 0, 1 and 2, "equal_t" lists the mesh and
-    its copy in both orders."""
+def sweep_batch(case: str, kernel: str = "K2"):
+    """(tris, counts, lists, rays) of one adversarial case of a sweep
+    instance (SWEEPS), on the CPU. Lists come from the plain K1 masks
+    (ascending ids, one a 256- or 512-ray block) unless the case makes its
+    own: "counts" sets counts of -1 and 0, "width1" keeps one entry a list
+    with counts -1, 0, 1 and 2, "equal_t" lists the mesh and its copy in
+    both orders. K3's counts are all -1 (every cluster)."""
+    block, every = SWEEPS[kernel]
     tris = torch.from_numpy(triangles())
     nc = tris.shape[0] // pi.LEAF
     aabb, n_bits = cluster_boxes(tris.numpy())
-    r = rays(case if case in ("nan_lanes", "zero_dirs", "shared_edges",
-                              "one_lane") else "shared_edges")
+    r = rays(case if case in RAY_CASES else "shared_edges")
     words = pi._cluster_masks_plain(torch.from_numpy(aabb), r, n_bits)
-    counts, lists = traverse.exact_lists(words, n_bits)
+    counts, lists = traverse.exact_lists(words, n_bits, block=block)
     nsb = counts.shape[0]
-    if case == "counts":
+    if every:
+        counts = torch.full((nsb,), -1, dtype=torch.int32)
+        lists = torch.zeros((nsb, 1), dtype=torch.int32)
+    elif case == "counts":
         counts[0::5] = -1
         counts[3::7] = 0
     elif case == "width1":
@@ -162,29 +177,35 @@ def sweep_batch(case: str):
     return tris, counts, lists.contiguous(), r
 
 
-def k2_with_warp_skips(counts, lists, rays_, tris):
-    """A CPU model of the CUDA K2's control flow: the plain sweep, except
-    that a triangle counts for a ray only when some ray of its WARP_RAYS-ray
-    warp has 0 <= bu <= 1 and some ray of it is inside, as the kernel skips
-    the rest of the test otherwise. Returns hits [8, Npad] like the plain
-    version."""
+# Each instance's wrapper: its `launches` counts the kernel's launches.
+WRAPPERS = {"K2": pi.intersect_culled_rows, "K4": pi.intersect_stream_rows,
+            "K3": pi.intersect_brute_rows}
+
+
+def sweep_with_warp_skips(counts, lists, rays_, tris, block=pi.RB_SUB):
+    """A CPU model of the CUDA sweep's control flow (K2 at block RB_SUB;
+    K4 at block RB; K3 at block RB with every count -1): the plain sweep,
+    except that a triangle counts for a ray only when some ray of its
+    WARP_RAYS-ray warp has 0 <= bu <= 1 and some ray of it is inside, as
+    the kernel skips the rest of the test otherwise. Returns hits
+    [8, Npad] like the plain version."""
     npad = rays_.shape[1]
-    nsb = npad // pi.RB_SUB
+    nsb = npad // block
     n_clusters = tris.shape[0] // pi.LEAF
     tri9 = tris[:, :9].reshape(n_clusters, pi.LEAF, 9)
     out = torch.zeros((8, npad), dtype=torch.float32)
     rows = torch.arange(pi.LEAF, dtype=torch.float32)[:, None]
     for s in range(nsb):
-        r = rays_[:, s * pi.RB_SUB:(s + 1) * pi.RB_SUB]
+        r = rays_[:, s * block:(s + 1) * block]
         ox, oy, oz, dx, dy, dz = (r[i][None] for i in range(6))
-        best_t = torch.full((1, pi.RB_SUB), pi.BIG)
-        best_i = torch.full((1, pi.RB_SUB), -1.0)
+        best_t = torch.full((1, block), pi.BIG)
+        best_i = torch.full((1, block), -1.0)
         count = int(counts[s])
         n = n_clusters if count < 0 else count
         for k in range(n):
             cid = k if count < 0 else int(lists[s, min(k, lists.shape[1] - 1)])
             bu, bv, t = pi.moller_trumbore(tri9[cid], ox, oy, oz, dx, dy, dz)
-            inside = pi.inside_triangle(bu, bv)             # [LEAF, 256]
+            inside = pi.inside_triangle(bu, bv)             # [LEAF, block]
             warp = (lambda m: m.reshape(pi.LEAF, -1, WARP_RAYS).any(-1)
                     .repeat_interleave(WARP_RAYS, 1))
             tested = warp((bu >= 0) & (bu <= 1)) & warp(inside)
@@ -196,20 +217,21 @@ def k2_with_warp_skips(counts, lists, rays_, tris):
             better = tmin < best_t
             best_i = torch.where(better, float(cid * pi.LEAF) + win, best_i)
             best_t = torch.where(better, tmin, best_t)
-        out[0, s * pi.RB_SUB:(s + 1) * pi.RB_SUB] = best_t[0]
-        out[1, s * pi.RB_SUB:(s + 1) * pi.RB_SUB] = best_i[0]
+        out[0, s * block:(s + 1) * block] = best_t[0]
+        out[1, s * block:(s + 1) * block] = best_i[0]
     return out
 
 
-def lanes_passing_bu(counts, lists, rays_, tris):
-    """For every (warp, listed triangle) of the sweep, how many of the
-    warp's rays have 0 <= bu <= 1: a flat int tensor."""
+def lanes_passing_bu(counts, lists, rays_, tris, block=pi.RB_SUB):
+    """For every (warp, listed triangle) of the sweep of `block`-ray
+    lists, how many of the warp's rays have 0 <= bu <= 1: a flat int
+    tensor."""
     npad = rays_.shape[1]
     n_clusters = tris.shape[0] // pi.LEAF
     tri9 = tris[:, :9].reshape(n_clusters, pi.LEAF, 9)
     got = []
-    for s in range(npad // pi.RB_SUB):
-        r = rays_[:, s * pi.RB_SUB:(s + 1) * pi.RB_SUB]
+    for s in range(npad // block):
+        r = rays_[:, s * block:(s + 1) * block]
         count = int(counts[s])
         for k in range(n_clusters if count < 0 else count):
             cid = k if count < 0 else int(lists[s, min(k, lists.shape[1] - 1)])

@@ -16,6 +16,8 @@ tests/test_torch_render.py (citynight's light pdf is the culled sum in the
 port and the dense sum in JAX's CPU trace: the same terms in another
 association), with equal live-lane and ray counts."""
 
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -241,13 +243,10 @@ def test_chunk_major_lists_are_uncapped(monkeypatch):
         assert (np.diff(lst[r, :k].numpy() // 5) >= 0).all()
 
 
-@pytest.mark.parametrize("max_exact", [256, 4])
-def test_streamed_cast_matches(monkeypatch, max_exact):
-    """The streamed sweep (plain K4, one list per RB-ray block) against
-    JAX's DMA-streamed kernel, the threshold lowered in both before the
-    scene build: the port's own build decides `stream` and keeps the JAX
-    rows' first 12 columns; hits bit-equal, g == 1 and g > 1."""
-    rng = np.random.default_rng(7)
+def _streamed_pair(monkeypatch, rng, max_exact):
+    """(JAX scene, port scene) of 700 random triangles, the streaming
+    threshold (and MAX_EXACT_CLUSTERS) lowered in both packages before the
+    build: the port's own build decides `stream`."""
     monkeypatch.setattr(jtrav, "MAX_EXACT_CLUSTERS", max_exact)
     monkeypatch.setattr(ttrav, "MAX_EXACT_CLUSTERS", max_exact)
     p, u, v = random_triangles(rng, 700)
@@ -260,21 +259,102 @@ def test_streamed_cast_matches(monkeypatch, max_exact):
     assert np.array_equal(arrays["ptri"], np.asarray(js.ptri)[:, :12])
     ts = tbuild.finish_scene(_host(p, u, v), device="cpu")
     assert ts.stream and tpi.list_block(ts) == tpi.RB
-    o, d = _rays(rng, 1500)
-    calls = []
+    return js, ts
+
+
+@pytest.mark.parametrize("max_exact, cap", [
+    pytest.param(256, None, id="256"), pytest.param(4, None, id="4"),
+    pytest.param(4, 3, id="4-cap3")])
+def test_streamed_cast_matches(monkeypatch, max_exact, cap):
+    """The streamed sweep (plain K4, one list per RB-ray block) against
+    JAX's DMA-streamed kernel, the threshold lowered in both before the
+    scene build: the port's own build decides `stream` and keeps the JAX
+    rows' first 12 columns; hits bit-equal, g == 1 and g > 1. With the
+    list cap lowered to `cap` in both packages (g > 1), most blocks
+    overflow: JAX sweeps every cluster for them, the port its uncapped
+    ascending-id lists (traverse._sweep_exact), and the hits are the
+    same."""
+    rng = np.random.default_rng(7)
+    js, ts = _streamed_pair(monkeypatch, rng, max_exact)
+    if cap is None:
+        o, d = _rays(rng, 1500)
+    else:
+        # a pinhole camera's 64 x 64 rays, tiled: each 512-ray block sees
+        # part of the scene
+        for mod in (jtrav, ttrav):
+            monkeypatch.setattr(mod, "_sweep_exact", functools.partial(
+                mod._sweep_exact, cap=cap))
+        y, x = np.meshgrid(np.linspace(-0.5, 0.5, 64),
+                           np.linspace(-0.5, 0.5, 64), indexing="ij")
+        d = np.stack([x, y, np.ones_like(x)], -1).astype(np.float32)
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        o = np.broadcast_to(np.float32([0, 0, -12]), d.shape).copy()
+    lists = []
     real = tpi.intersect_stream_rows
     monkeypatch.setattr(tpi, "intersect_stream_rows",
-                        lambda *a: calls.append(1) or real(*a))
+                        lambda *a: lists.append(a[1:3]) or real(*a))
     jt, ji, _, _ = jtrav.cast_rays_pallas(js, jnp.asarray(o), jnp.asarray(d))
     tt, ti = ttrav.cast_rays_pallas(ts, _t(o), _t(d))
-    assert calls and (np.asarray(ji) >= 0).sum() > 200
+    assert lists and (np.asarray(ji) >= 0).sum() > 200
     _same_hits(jt, ji, tt, ti)
-    alive = rng.random(1500) < 0.7
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    alive = rng.random(o.shape[0]) < 0.7
     jt, ji, _, _ = jtrav.cast_rays_pallas(js, jnp.asarray(o), jnp.asarray(d),
                                           sort=True, alive=jnp.asarray(alive))
     tt, ti = ttrav.cast_rays_pallas(ts, _t(o), _t(d), sort=True,
                                     alive=_t(alive))
     _same_hits(jt, ji, tt, ti)
+    if cap is not None:
+        counts = torch.cat([c for c, _ in lists])
+        n_clusters = ts.cluster_lo.shape[0]
+        over = counts > cap
+        assert (counts >= 0).all() and over.float().mean() > 0.5
+        # some overflowing list is shorter than the sweep of every cluster
+        assert (counts[over] < n_clusters).any()
+
+
+def test_streamed_overflow_lists(monkeypatch):
+    """sweep_lists of a streamed scene at g > 1 (MAX_EXACT_CLUSTERS 4),
+    cap 3: a row beyond the cap lists exactly its block mask's clusters in
+    ascending id order with its true count; every other row is
+    build_lists(cap, near)'s; and plain K4 over the new lists is bit-equal
+    to plain K4 over the capped ones (count -1 beyond the cap)."""
+    rng = np.random.default_rng(17)
+    cap = 3
+    _, ts = _streamed_pair(monkeypatch, rng, 4)
+    g, n_super, aabb8 = ttrav.exact_cull_layout(ts)
+    n_clusters = ts.cluster_lo.shape[0]
+    assert g > 1
+    o, d = _rays(rng, 16 * tpi.RB)
+    rays, _, _ = tpi.pack_rays(_t(o), _t(d))
+    words = tpi.cluster_masks_rows(aabb8, rays, n_super)
+    # lanes sorted by mask word, as the main path sorts them
+    perm = torch.sort(words[0], stable=True).indices
+    rays, words = rays[:, perm].contiguous(), words[:, perm].contiguous()
+    c, lst = ttrav.sweep_lists(ts, words, rays, g, n_super, cap=cap)
+    # the block masks, as sweep_lists starts from them
+    smask = tcull.unpack_mask(tcull.or_blocks_packed(words, tpi.RB), n_super)
+    imask, near = tcull.cull_clusters(
+        *tcull.block_bounds_rows(rays, tpi.RB), ts.cluster_lo, ts.cluster_hi)
+    bmask = smask.repeat_interleave(g, dim=1)[:, :n_clusters] & imask
+    over = c > cap
+    assert 0 < int(over.sum()) < c.numel()
+    assert (c[over] < n_clusters).any()
+    assert torch.equal(c, bmask.sum(-1).to(torch.int32))
+    assert lst.shape == (c.numel(), int(c.max()))
+    c0, lst0 = tcull.build_lists(bmask, cap=cap, near=near)
+    assert torch.equal(c0, torch.where(over, -1, c))
+    for r in range(c.numel()):
+        k = int(c[r])
+        if over[r]:
+            ids = torch.nonzero(bmask[r])[:, 0].to(torch.int32)
+            assert torch.equal(lst[r, :k], ids)
+        else:
+            assert torch.equal(lst[r, :k], lst0[r, :k])
+    got = tpi.intersect_stream_rows(ts.ptri, c, lst, rays)
+    want = tpi.intersect_stream_rows(ts.ptri, c0, lst0, rays)
+    assert int((want[1] >= 0).sum()) > 500
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_stream_plain_matches_pallas(monkeypatch):

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1-K5) against their plain PyTorch versions, on
-the card.
+"""The port's CUDA kernels (K1-K5; K2, K3 and K4 are instances of one sweep
+kernel) against their plain PyTorch versions, on the card.
 
 Every test here carries the `gpu` marker and takes the `cuda` fixture,
 which skips when no CUDA device is present (decided inside the fixture, so
@@ -150,19 +150,59 @@ def test_mask_kernel_adversarial(cuda, case, tmax_row):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", kb.SWEEP_CASES)
-def test_sweep_kernel_adversarial(cuda, case):
-    """K2 on tests/kernel_batches.py's adversarial batches: NaN dead lanes,
-    zero direction components, counts -1 and 0, one-entry lists, equal t in
-    two listed clusters, rays through shared edges and vertices, and warps
-    where one lane alone passes the bu test (the warp skips)."""
-    tris, counts, lists, rays = (x.to(cuda) for x in kb.sweep_batch(case))
-    before = pi.intersect_culled_rows.launches
-    got = pi.intersect_culled_rows(tris, counts, lists, rays)
-    want = pi._culled_plain(counts, lists, rays, tris)
+@pytest.mark.parametrize("kernel, case", [
+    pytest.param(k, c, id=c if k == "K2" else f"{k}-{c}")
+    for k, c in kb.KERNEL_CASES])
+def test_sweep_kernel_adversarial(cuda, kernel, case):
+    """The sweep kernel's instances K2 (256-ray lists), K4 (512-ray lists)
+    and K3 (every cluster) on tests/kernel_batches.py's adversarial
+    batches: NaN dead lanes, zero direction components, counts -1 and 0,
+    one-entry lists, equal t in two listed clusters, BIG pad rows, rays
+    through shared edges and vertices, and warps where one lane alone
+    passes the bu test (the warp skips)."""
+    block, _ = kb.SWEEPS[kernel]
+    tris, counts, lists, rays = (x.to(cuda)
+                                 for x in kb.sweep_batch(case, kernel))
+    fn = kb.WRAPPERS[kernel]
+    before = fn.launches
+    got = (fn(tris, rays) if kernel == "K3"
+           else fn(tris, counts, lists, rays))
+    want = pi._culled_plain(counts, lists, rays, tris, block)
     torch.cuda.synchronize()
-    assert pi.intersect_culled_rows.launches == before + 1
+    assert fn.launches == before + 1
     assert int((want[1] >= 0).sum()) > 50
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_stream_kernel_overflow_lists(cuda):
+    """K4 over a streamed cast's lists for blocks beyond the cap (their
+    clusters in ascending id order, uncapped, true counts) gives the same
+    hits bit for bit as K4 over the same blocks at count -1 (every
+    cluster), and as the plain version."""
+    tris, _, _, rays = kb.sweep_batch("shared_edges", "K4")
+    aabb, n_bits = kb.cluster_boxes(tris.numpy())
+    words = pi._cluster_masks_plain(torch.from_numpy(aabb), rays, n_bits)
+    # lanes sorted by mask, as the main path sorts them: blocks of 3-7 of
+    # the 7 clusters
+    perm = torch.sort(words[0], stable=True).indices
+    rays, words = rays[:, perm].contiguous(), words[:, perm].contiguous()
+    cap = 5
+    counts, lists = culling.build_lists(
+        culling.unpack_mask(culling.or_blocks_packed(words, pi.RB), n_bits),
+        cap=cap, overflow_ids=True)
+    over = counts > cap
+    assert int(over.sum()) >= 2 and not bool(over.all())
+    assert bool((counts[over] < tris.shape[0] // pi.LEAF).any())
+    capped = torch.where(over, -1, counts)
+    t, c, lst, r, cc = (x.to(cuda) for x in (tris, counts, lists, rays,
+                                             capped))
+    got = pi.intersect_stream_rows(t, c, lst, r)
+    every = pi.intersect_stream_rows(t, cc, lst, r)
+    want = pi._culled_plain(c, lst, r, t, pi.RB)
+    torch.cuda.synchronize()
+    assert int((want[1] >= 0).sum()) > 50
+    assert torch.equal(got.view(torch.int32), every.view(torch.int32))
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 

@@ -1,14 +1,15 @@
 """The exactness arguments of the port's redesigned CUDA kernels K1 (mask)
-and K2 (culled sweep), checked on the CPU on adversarial float32 values:
-NaN, +-0, +-inf, subnormals, BIG pad rows and direction components at the
-1e-30 clamp.
+and the sweep of K2, K3 and K4, checked on the CPU on adversarial float32
+values: NaN, +-0, +-inf, subnormals, BIG pad rows and direction components
+at the 1e-30 clamp.
 
-* K2's warp skip: a warp skips the rest of a triangle's test when no ray of
-  it has 0 <= bu <= 1. That is exact because the inside test, as the plain
-  sweep computes it (`pallas_intersect.inside_triangle`), implies
+* The sweep's warp skip: a warp skips the rest of a triangle's test when no
+  ray of it has 0 <= bu <= 1. That is exact because the inside test, as
+  the plain sweep computes it (`pallas_intersect.inside_triangle`), implies
   0 <= bu <= 1. The second skip, after bv when no ray is inside, needs no
-  argument; a CPU model of both (`kernel_batches.k2_with_warp_skips`) is
-  held bit-equal to the plain sweep.
+  argument; a CPU model of both (`kernel_batches.sweep_with_warp_skips`)
+  is held bit-equal to the plain sweep, at 256- and 512-ray lists and
+  over every cluster.
 * K1's PTX min.NaN / max.NaN: they propagate NaN as torch.minimum /
   torch.maximum do, but for a -0 / +0 pair may return the other zero. A
   numpy model of K1 with each choice of zero gives the plain version's
@@ -108,24 +109,31 @@ def test_inside_implies_warp_skip_predicate(case):
         assert bool(torch.isnan(bu).any()) and bool(torch.isinf(bu).any())
 
 
-@pytest.mark.parametrize("case", kb.SWEEP_CASES)
-def test_warp_skip_model_matches_plain_sweep(case):
-    """The CPU model of K2's two warp skips gives the plain sweep's hits
-    bit for bit on every adversarial batch."""
-    tris, counts, lists, r = kb.sweep_batch(case)
-    want = pi._culled_plain(counts, lists, r, tris)
-    got = kb.k2_with_warp_skips(counts, lists, r, tris)
+@pytest.mark.parametrize("kernel, case", [
+    pytest.param(k, c, id=c if k == "K2" else f"{k}-{c}")
+    for k, c in kb.KERNEL_CASES])
+def test_warp_skip_model_matches_plain_sweep(kernel, case):
+    """The CPU model of the sweep kernel's two warp skips gives the plain
+    sweep's hits bit for bit on every adversarial batch, for each instance
+    of the kernel: K2's 256-ray lists, K4's 512-ray lists and K3's sweep
+    of every cluster."""
+    block, _ = kb.SWEEPS[kernel]
+    tris, counts, lists, r = kb.sweep_batch(case, kernel)
+    want = pi._culled_plain(counts, lists, r, tris, block)
+    got = kb.sweep_with_warp_skips(counts, lists, r, tris, block)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert int((want[1] >= 0).sum()) > 50
     if case == "one_lane":
         # some warp has exactly one ray passing bu for a listed triangle
-        assert bool((kb.lanes_passing_bu(counts, lists, r, tris) == 1).any())
-    if case == "equal_t":
+        assert bool((kb.lanes_passing_bu(counts, lists, r, tris, block)
+                     == 1).any())
+    if case == "equal_t" or kernel == "K3":
         # the copy of the mesh rows gives equal t in two listed clusters:
-        # blocks listing the copy first report it
+        # blocks listing the copy first report it (every-cluster sweeps
+        # list the mesh first: clusters 0-1 win)
         hit = want[1] >= 0
-        assert bool((hit & (want[1] >= 2 * pi.LEAF)
-                     & (want[1] < 4 * pi.LEAF)).any())
+        copy = hit & (want[1] >= 2 * pi.LEAF) & (want[1] < 4 * pi.LEAF)
+        assert bool(copy.any()) != (kernel == "K3")
         assert bool((hit & (want[1] < 2 * pi.LEAF)).any())
 
 

@@ -73,3 +73,32 @@ def test_sass_loop(lines, want):
     cs = _chip_smoke()
     (insns, labels), = cs.sass_functions(_listing(lines)).values()
     assert cs.sass_loop(insns, labels, "MUFU.RCP", 1) == want
+
+
+# The sweep kernel's instances as the profiler (demangled) and cuobjdump
+# (mangled, lower-cased by the profile's bucketing) name them.
+INSTANCES = [
+    ("K2", "void culled_kernel<256, false, 4>(int const*, int const*, int, "
+           "float const*, int, float const*, int, float*)",
+     "_Z13culled_kernelILi256ELb0ELi4EEvPKiS1_iPKfiS3_iPf"),
+    ("K4", "void culled_kernel<512, false, 4>(int const*, int const*, int, "
+           "float const*, int, float const*, int, float*)",
+     "_Z13culled_kernelILi512ELb0ELi4EEvPKiS1_iPKfiS3_iPf"),
+    ("K3", "void culled_kernel<512, true, 2>(int const*, int const*, int, "
+           "float const*, int, float const*, int, float*)",
+     "_Z13culled_kernelILi512ELb1ELi2EEvPKiS1_iPKfiS3_iPf"),
+]
+
+
+@pytest.mark.parametrize("key, demangled, mangled", INSTANCES,
+                         ids=[k for k, _, _ in INSTANCES])
+def test_sweep_instance_names(key, demangled, mangled):
+    """Each instance of the sweep kernel gets its own profile bucket from
+    either form of its name, and its SASS symbol matches its instance
+    only."""
+    cs = _chip_smoke()
+    bucket = {"K2": "K2 sweep", "K3": "K3 brute", "K4": "K4 stream"}[key]
+    assert cs.sweep_instance(demangled.lower()) == bucket
+    assert cs.sweep_instance(mangled.lower()) == bucket
+    for other, _, name in INSTANCES:
+        assert (cs.KERNEL_SYMBOLS[key] in name) == (other == key)
