@@ -7,10 +7,9 @@ wall time:
   1. card      name and power limit (nvidia-smi)
   2. build     the CUDA kernels K1-K5 (nvcc, ptxas -v report: registers a
                thread; K2, K3 and K4 are instances of one sweep kernel)
-               and the host lib; SASS instructions a test in each sweep
-               instance's and K1's inner loop (cuobjdump -sass,
-               sass_counts; the SASS is written next to the renders as
-               sass.txt)
+               and the host lib; SASS instructions a test in each
+               kernel's inner loop (cuobjdump -sass, sass_counts; the SASS
+               is written next to the renders as sass.txt)
   3. scene     the demo scene through the port's own assets, glTF reader
                and finish_scene(device="cuda")
   4. kernels   K1 (mask) and K2 (sweep) against their plain PyTorch
@@ -31,8 +30,12 @@ wall time:
      with its kernel checks, calibration and PATH_STEPS timed steps, the
      launch counts read at every step, overflow 0, peak memory:
        citynight  1,728 lights: K1, K2 and K5 (light-cluster pdf; checked
-                  on the bounce-0 shading batch, and against the dense sum
-                  on a slice)
+                  on the bounce-0 shading batch and on the second bounce's
+                  batch of one more step, with its warp-vote rates and the
+                  SM clock under its load; the culled pdf against the dense
+                  sum on a slice of the first and on the whole second,
+                  where lanes through a light's edge may differ: see
+                  edge_flips)
        city       811 clusters, two-level layout (g = 4): K1 and K2 over
                   chunk-major lists
        city24     city with blocks=24, 207,234 triangles, streamed: K1 and
@@ -44,6 +47,10 @@ wall time:
                   every bounce of one more step)
        brute      the demo with intersector="pallas_brute": K3 only,
                   uncompacted; the cube golden image through K3
+     then the dense light pdf below 512 lights: citynight with one window
+     a tower (288 lights), its full-frame bounce-0 shading batch:
+     shading.light_pdf_sum's time and peak memory, and the culled pdf
+     (K5) against it at rtol 2e-4 with its time
   8. twophase    the demo at 1920x1080, depth 8, with two-phase culling
                  (traverse.TWO_PHASE_K = 2): K1 with its tmax row against its
                  plain version on the sorted bounce-1 batch with phase A's t in
@@ -60,9 +67,8 @@ wall time:
  10. with --profile: one more step of each path under torch.profiler,
      device time by kernel class and the device's busy share
  11. the kernels JSON line (K1-K5 and K1 with its tmax row; each with its
-     design generation and registers, K1-K4 and K1-tmax with their SASS
-     counts, SM clock and issue floors, K2-K4 with their warp-vote rates),
-     then the {"ok": true, ...} line.
+     design and registers, its SASS counts, SM clock and issue floors, K2-K5
+     with their warp-vote rates), then the {"ok": true, ...} line.
 
 The check phase renders the four golden images of tests/golden/ through
 "pallas" (cube and cornell at rtol 1e-3, atol 1e-4; the glossy textured and
@@ -126,24 +132,26 @@ WARP = 32
 # gets no count.
 SASS_MAX_PATHS = 4096
 # Each kernel's symbol in the ptxas report and the SASS, and the SASS
-# opcode that occurs a fixed number of times in each of its tests (the
-# slab test's 6 products; the triangle test's one reciprocal): it counts
-# the tests an iteration of the kernel's inner loop holds.
+# opcode that counts the tests an iteration of the kernel's inner loop
+# holds: (opcode, times in every test, more times in a test that passes
+# both warp votes). The slab test issues 6 products; the triangle test one
+# reciprocal; the light test one reciprocal, and a second (the weight's
+# division) past both votes.
 # K2, K3 and K4 are instances of culled_kernel<rays a list, every cluster,
-# triangles a step>.
+# triangles a step>; K5 is light_kernel<rays a block, lights a step>.
 KERNEL_SYMBOLS = {"K1": "mask_kernelILb0E", "K1 tmax": "mask_kernelILb1E",
                   "K2": "culled_kernelILi256ELb0ELi4E",
                   "K3": "culled_kernelILi512ELb1ELi2E",
-                  "K4": "culled_kernelILi512ELb0ELi4E", "K5": "light_kernel"}
-SASS_MARKERS = {"K1": ("FMUL", 6), "K1 tmax": ("FMUL", 6),
-                "K2": ("MUFU.RCP", 1), "K3": ("MUFU.RCP", 1),
-                "K4": ("MUFU.RCP", 1)}
-# Each kernel's design, a label: the first port, or the Hopper redesign of
-# K1 and of the sweep of K2, K3 and K4 (csrc/intersect_kernels.cu says what
-# each design does).
+                  "K4": "culled_kernelILi512ELb0ELi4E",
+                  "K5": "light_kernelILi128ELi2E"}
+SASS_MARKERS = {"K1": ("FMUL", 6, 0), "K1 tmax": ("FMUL", 6, 0),
+                "K2": ("MUFU.RCP", 1, 0), "K3": ("MUFU.RCP", 1, 0),
+                "K4": ("MUFU.RCP", 1, 0), "K5": ("MUFU.RCP", 1, 1)}
+# Each kernel's design, a label: every kernel has had its Hopper redesign
+# (csrc/intersect_kernels.cu says what each design does).
 DESIGN = {"K1": "hopper-redesign", "K1 tmax": "hopper-redesign",
           "K2": "hopper-redesign", "K3": "hopper-redesign",
-          "K4": "hopper-redesign", "K5": "first-port"}
+          "K4": "hopper-redesign", "K5": "hopper-redesign"}
 # The list cap of traverse.sweep_lists (its default): a streamed cast's
 # lists beyond it are uncapped ascending ids, the JAX package's count -1.
 LIST_CAP = 256
@@ -311,19 +319,22 @@ def _conditional(ins: str) -> bool:
             or re.search(r"BRA\S*\s+!?U?P\d", ins) is not None)
 
 
-def sass_loop(insns, labels, marker: str, per_test: int):
+def sass_loop(insns, labels, marker: str, per_test: int, per_full: int = 0):
     """Instructions one iteration of a kernel's inner loop issues, per test.
 
     The inner loop is the backward branch whose range holds the most
     `marker` instructions (the smallest such range). Every path of one
-    iteration is walked from the loop head to the back edge. A conditional
-    forward branch is followed both ways, except where one way alone leads
-    to a CALL (the slow path of the correctly rounded reciprocal): that way
-    is not followed. A conditional branch back into an inner loop is not
-    taken. A branch right after a VOTE is a warp skip; `@!P BRA` skips
-    when taken. Of the paths that execute the most markers (every test of
-    the iteration, not a ragged remainder), returns the tests an iteration
-    holds (markers / per_test) and, per test, the instructions of the path
+    iteration is walked from the loop head to the back edge. A branch right
+    after a VOTE is a warp skip, followed both ways; `@!P BRA` skips when
+    taken. Any other conditional forward branch is followed both ways,
+    except where one way alone leads to a CALL (the slow path of a
+    correctly rounded reciprocal or division): that way is not followed. A
+    conditional branch back into an inner loop is not taken. A path's
+    tests are its markers less per_full for each test that passes both
+    votes (a vote pair PP), over per_test. Of the paths that run the most
+    tests (every test of the iteration, not a ragged remainder), returns
+    the tests an iteration holds and, per test, the instructions of the
+    path
     on which every warp passes every vote (full), passes each first vote
     and skips at the second (mid), and skips at every first vote (skip).
     None when no loop holds the marker, when the walk stopped at
@@ -376,6 +387,15 @@ def sass_loop(insns, labels, marker: str, per_test: int):
                 i += 1
                 continue
             j = index[t]
+            if any(_opcode(x).startswith("VOTE")
+                   for _, x in insns[max(0, i - 4):i]):
+                # a warp skip: both ways, whatever the passing way holds
+                skip_when_taken = ins.startswith("@!")
+                walk(j, count, marks, votes + ("S" if skip_when_taken
+                                               else "P"))
+                votes += "P" if skip_when_taken else "S"
+                i += 1
+                continue
             # the fall-through up to the target (inside the loop), and the
             # block at the target
             fall = calls(i + 1, j if t <= tail else block_end(i + 1))
@@ -383,23 +403,19 @@ def sass_loop(insns, labels, marker: str, per_test: int):
             if fall != jump:
                 i = i + 1 if jump else j
                 continue
-            if any(_opcode(x).startswith("VOTE")
-                   for _, x in insns[max(0, i - 4):i]):
-                skip_when_taken = ins.startswith("@!")
-                walk(j, count, marks, votes + ("S" if skip_when_taken
-                                               else "P"))
-                votes += "P" if skip_when_taken else "S"
-            else:
-                walk(j, count, marks, votes)
+            walk(j, count, marks, votes)
             i += 1
         paths.append((count, marks, votes))
 
     walk(index[head], 0, 0, "")
     if len(paths) >= SASS_MAX_PATHS:
         return None
-    most = max(m for _, m, _ in paths)
-    main = [(c, v) for c, m, v in paths if m == most]
-    tests = most / per_test
+    def tests_of(marks, votes):
+        passed = re.findall(r"S|P[PS]?", votes).count("PP")
+        return (marks - per_full * passed) / per_test
+
+    tests = max(tests_of(m, v) for _, m, v in paths)
+    main = [(c, v) for c, m, v in paths if tests_of(m, v) == tests]
 
     def per(pattern):
         got = [c for c, v in main if re.fullmatch(pattern, v)]
@@ -426,10 +442,10 @@ def sass_counts(so_path, dump_to=None) -> dict:
         Path(dump_to).write_text(text)
     funcs = sass_functions(text)
     out = {}
-    for k, (marker, per_test) in SASS_MARKERS.items():
+    for k, (marker, per_test, per_full) in SASS_MARKERS.items():
         for name, (insns, labels) in funcs.items():
             if KERNEL_SYMBOLS[k] in name:
-                out[k] = sass_loop(insns, labels, marker, per_test)
+                out[k] = sass_loop(insns, labels, marker, per_test, per_full)
     return out
 
 
@@ -461,7 +477,8 @@ def add_floors(m: dict, sass: dict, mhz, n_sm: int) -> dict:
     rates."""
     if not sass or mhz is None:
         return dict(m, issue_floor_ms=None)
-    tests = m.get("ray_triangle_tests", m.get("tests"))
+    tests = m.get("ray_triangle_tests", m.get("ray_light_tests",
+                                               m.get("tests")))
     out = dict(m, issue_floor_ms=issue_floor_ms(
         tests, sass["per_test_full"], mhz, n_sm))
     if sass["per_test_skip"] != sass["per_test_full"]:
@@ -477,18 +494,17 @@ def add_floors(m: dict, sass: dict, mhz, n_sm: int) -> dict:
     return out
 
 
-def warp_vote_rates(pi, counts, lists, rays, tris, block):
-    """The sweep's warp skips on this batch of `block`-ray lists: the share
-    of (warp, listed triangle) pairs in which some ray of the warp (32
-    lanes, a ray each) has 0 <= bu <= 1 (passes the first vote) and in
-    which some ray is inside (passes the second), from the plain version's
-    own terms."""
+def warp_vote_rates(counts, lists, rays, rows, block, terms, inside):
+    """A kernel's warp skips on this batch of `block`-ray lists over
+    clusters of `rows` [n_clusters, leaf, width]: the share of (warp,
+    listed row) pairs in which some ray of the warp (32 lanes, a ray each)
+    has 0 <= bu <= 1 (passes the first vote) and in which some ray is
+    inside (passes the second), from the plain version's own terms:
+    terms(cluster rows, *ray components) gives bu, bv; inside(bu, bv)."""
     import torch
 
-    leaf = pi.LEAF
+    n_clusters, leaf = rows.shape[0], rows.shape[1]
     nsb = rays.shape[1] // block
-    n_clusters = tris.shape[0] // leaf
-    tri9 = tris[:, :9].reshape(n_clusters, leaf, 9)
     n_of = torch.where(counts < 0, n_clusters, counts)
     pairs = v1 = v2 = 0
     chunk = max(1, (1 << 23) // (leaf * block))
@@ -502,14 +518,31 @@ def warp_vote_rates(pi, counts, lists, rays, tris, block):
             listed = lists[s0:s1, min(k, lists.shape[1] - 1)]
             cid = torch.where(counts[s0:s1] < 0, k,
                               torch.where(k < n_c, listed, 0)).long()
-            bu, bv, _ = pi.moller_trumbore(tri9[cid], *comps)
+            bu, bv = terms(rows[cid], *comps)
             shape = (s1 - s0, leaf, block // WARP, WARP)
             p1 = ((bu >= 0) & (bu <= 1)).reshape(shape).any(-1) & active
-            p2 = pi.inside_triangle(bu, bv).reshape(shape).any(-1) & active
+            p2 = inside(bu, bv).reshape(shape).any(-1) & active
             pairs += int(active.sum()) * leaf * (block // WARP)
             v1 += int(p1.sum())
             v2 += int(p2.sum())
     return [v1 / max(pairs, 1), v2 / max(pairs, 1)]
+
+
+def sweep_vote_rates(pi, counts, lists, rays, tris, block):
+    """warp_vote_rates of the triangle sweep (K2, K3, K4)."""
+    tri9 = tris[:, :9].reshape(tris.shape[0] // pi.LEAF, pi.LEAF, 9)
+    return warp_vote_rates(
+        counts, lists, rays, tri9, block,
+        lambda c, *comps: pi.moller_trumbore(c, *comps)[:2],
+        pi.inside_triangle)
+
+
+def light_vote_rates(lc, counts, lists, rays, light_rows):
+    """warp_vote_rates of K5's light test, 512-ray lists."""
+    lt = light_rows.reshape(-1, lc.LEAF_L, lc.ROW_WIDTH)
+    return warp_vote_rates(
+        counts, lists, rays, lt, lc.pi.RB,
+        lambda c, *comps: lc.light_terms(c, *comps)[:2], lc.light_inside)
 
 
 def measure_k1(pi, aabb8, rays, n_bits, dev, reps, tmax_row=False,
@@ -609,8 +642,8 @@ def measure_sweep(pi, trav, scene, words, rays, g, n_super, dev, reps,
     if clock and dev.type == "cuda":
         out["sm_clock_mhz"] = sm_clock_mhz(
             lambda: kernel(tris, counts, lists, rays), ms, dev)
-    out["vote_rates"] = warp_vote_rates(pi, s_counts, s_lists, s_rays, tris,
-                                        block)
+    out["vote_rates"] = sweep_vote_rates(pi, s_counts, s_lists, s_rays,
+                                         tris, block)
     if b - a < n:
         out["vote_rates_on"] = "plain_slice"
         out["plain_slice"] = [a, b]
@@ -687,8 +720,8 @@ def measure_k3(pi, scene, rays, dev, reps, slice_blocks, clock=False):
            "slice_hits": int((want[1] >= 0).sum()),
            "bound_ms": b_ms, "bound_by": b_by,
            "max_abs_err": float((got[:2, a:b] - want[:2]).abs().max()),
-           "vote_rates": warp_vote_rates(pi, every, every[:, None], s_rays,
-                                         tris, pi.RB),
+           "vote_rates": sweep_vote_rates(pi, every, every[:, None],
+                                          s_rays, tris, pi.RB),
            "vote_rates_on": "plain_slice"}
     if clock and dev.type == "cuda":
         out["sm_clock_mhz"] = sm_clock_mhz(
@@ -696,11 +729,16 @@ def measure_k3(pi, scene, rays, dev, reps, slice_blocks, clock=False):
     return out
 
 
-def measure_k5(lc, scene, o, d, dev, reps, slice_blocks):
+def measure_k5(lc, scene, o, d, dev, reps, slice_blocks=None,
+               clock=False):
     """K5 on the light lists of shading points o and directions d [N, 3]:
     bit equality with the plain version, times and bound from this batch's
-    lists; and the culled pdf against the dense sum (the reference
-    semantics) on the read lanes of slice_blocks / 2 blocks mid-batch."""
+    lists, the warps' vote rates, all on the whole batch; and the culled
+    pdf against the dense sum (the reference semantics) on the read lanes
+    of slice_blocks / 2 blocks mid-batch (equal finiteness, rtol 2e-4,
+    atol 1e-6), or with no slice_blocks on the whole batch (edge_flips);
+    with `clock`, the SM
+    clock under its load."""
     import torch
 
     from raytracer_odin_tpu_torch.ops import shading
@@ -721,33 +759,191 @@ def measure_k5(lc, scene, o, d, dev, reps, slice_blocks):
     n_clusters = lr.shape[0] // lc.LEAF_L
     swept = int(torch.where(counts < 0, n_clusters, counts).sum())
     npad = rays.shape[1]
-    tests = swept * lc.LEAF_L * lc.pi.RB
+    rb = lc.pi.RB
+    tests = swept * lc.LEAF_L * rb
     nbytes = (6 * 4 * npad + 4 * npad + counts.numel() * 4
               + lists.numel() * 4 + lr.numel() * 4)
     b_ms, b_by = bound_ms(nbytes, K5_OPS_PER_TEST * tests)
+    out = {"rays": n, "lists": counts.numel(),
+           "overflow_lists": int((counts < 0).sum()),
+           "mean_list": swept / counts.numel(), "ray_light_tests": tests,
+           "nonzero": int((got[:n] > 0).sum()), "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "max_abs_err": float((got - want).abs().max()),
+           "vote_rates": light_vote_rates(lc, counts, lists, rays, lr),
+           "vote_rates_on": "whole_batch"}
+    if clock and dev.type == "cuda":
+        out["sm_clock_mhz"] = sm_clock_mhz(
+            lambda: lc.light_sums_rows(lr, counts, lists, rays), ms, dev)
     # reference: the dense sum over every light, on the lanes whose sum is
     # read (finite, not a missed ray's far point: light_lists' rule)
-    a, b = slice_of(n, slice_blocks // 2, lc.pi.RB)
+    a, b = slice_of(n, None if slice_blocks is None else slice_blocks // 2,
+                    rb)
     so, sd = o[a:b], d[a:b]
     culled = lc.light_pdf_sum_culled(scene, so, sd)
     dense = shading.light_pdf_sum(scene, so, sd)
-    read = (torch.isfinite(so).all(-1) & torch.isfinite(sd).all(-1)
-            & (so.abs().amax(-1) < lc.FAR))
-    c, r = culled[read], dense[read]
+    c, r, read = read_lanes(lc, so, sd, culled, dense)
     if not bool((r > 0).any()):
         raise AssertionError("the dense-sum check saw no lit lane")
+    if slice_blocks is not None:
+        fin = torch.isfinite(r)
+        if not (torch.equal(fin, torch.isfinite(c))
+                and torch.allclose(c[fin], r[fin], rtol=2e-4, atol=1e-6)):
+            raise AssertionError("culled light pdf differs from the dense "
+                                 "sum")
+    else:
+        out["dense_check_edge_flips"] = edge_flips(lc, scene, so, sd,
+                                                   culled, dense)
+    return dict(out, dense_check_lanes=int(read.sum()),
+                dense_check_nonzero=int((r > 0).sum()))
+
+
+def read_lanes(lc, o, d, *sums):
+    """Each of `sums` on the lanes whose light pdf is read (finite, not a
+    missed ray's far point: light_lists' rule), and the mask of them."""
+    import torch
+
+    read = (torch.isfinite(o).all(-1) & torch.isfinite(d).all(-1)
+            & (o.abs().amax(-1) < lc.FAR))
+    return tuple(x[read] for x in sums) + (read,)
+
+
+def light_pdf_inputs(lc, step, scene, stats, key, sample, dev):
+    """One more render step with light_cull.light_pdf_sum_culled recording
+    its inputs: (o, d) of each bounce's call, in order. Kernel wrappers
+    and their counts are untouched."""
+    real = lc.light_pdf_sum_culled
+    seen = []
+
+    def record(scene_, o, d, cap=lc.LIST_CAP):
+        seen.append((o.clone(), d.clone()))
+        return real(scene_, o, d, cap)
+
+    lc.light_pdf_sum_culled = record
+    try:
+        step(scene, stats, key, sample)
+        sync(dev)
+    finally:
+        lc.light_pdf_sum_culled = real
+    return seen
+
+
+# A light whose hit decision differs between the culled and the dense
+# light pdf must sit on a triangle edge: a barycentric within EDGE of 0, or
+# bu + bv within EDGE of 1, in both arithmetics.
+EDGE = 1e-4
+
+
+def edge_flips(lc, scene, o, d, culled, dense, limit=4096) -> int:
+    """How many read lanes hold a culled pdf (K5's arithmetic, the JAX
+    package's kernel order) and a dense sum (shading.light_pdf_sum, dots as
+    reductions) that differ beyond rtol 2e-4, atol 1e-6; each must be
+    explained by lights on a triangle edge, hit in one arithmetic and not
+    in the other (a ray through the shared edge of a quad's two triangles
+    counts for both, or for one): per such lane, every light whose hit
+    decision differs lies within EDGE of an edge in both, the recomputed
+    sums are the lane's, and the sums over the other lights agree within
+    the tolerance. Raises for a lane not so explained."""
+    import torch
+
+    from raytracer_odin_tpu_torch.ops import shading
+    from raytracer_odin_tpu_torch.ops.geometry import RAY_EPS
+
+    c, r, read = read_lanes(lc, o, d, culled, dense)
     fin = torch.isfinite(r)
-    if not (torch.equal(fin, torch.isfinite(c))
-            and torch.allclose(c[fin], r[fin], rtol=2e-4, atol=1e-6)):
-        raise AssertionError("culled light pdf differs from the dense sum")
-    return {"rays": n, "lists": counts.numel(),
-            "overflow_lists": int((counts < 0).sum()),
-            "mean_list": swept / counts.numel(), "ray_light_tests": tests,
-            "nonzero": int((got[:n] > 0).sum()), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err": float((got - want).abs().max()),
-            "dense_check_lanes": int(read.sum()),
-            "dense_check_nonzero": int((r > 0).sum())}
+    if not torch.equal(fin, torch.isfinite(c)):
+        raise AssertionError("culled and dense light pdf: finiteness differs")
+    bad = torch.nonzero(~torch.isclose(c, r, rtol=2e-4, atol=1e-6)
+                        & fin).flatten()
+    if bad.numel() > limit:
+        raise AssertionError(f"culled and dense light pdf differ on "
+                             f"{bad.numel()} lanes")
+    if bad.numel() == 0:
+        return 0
+    lanes = torch.nonzero(read).flatten()[bad]
+    oo, dd = o[lanes] + d[lanes] * RAY_EPS, d[lanes]
+    n_lights = scene.light_p.shape[0]
+    bu_d, bv_d, con_d = shading.light_pdf_terms(scene, oo, dd, 0, n_lights)
+    bu_k, bv_k, con_k = (x[:n_lights].T for x in lc.light_terms(
+        scene.light_rows, *(x[None, :] for x in (*oo.T, *dd.T))))
+
+    def on_edge(bu, bv):
+        return ((bu.abs() <= EDGE) | (bv.abs() <= EDGE)
+                | ((bu + bv - 1).abs() <= EDGE))
+
+    flip = (con_k != 0) != (con_d != 0)
+    k64, d64 = con_k.double(), con_d.double()
+
+    def close(x, y):
+        return bool(torch.isclose(x, y, rtol=2e-4, atol=1e-6 * n_lights)
+                    .all())
+
+    if not (bool(flip.any(-1).all())
+            and bool((on_edge(bu_k, bv_k) & on_edge(bu_d, bv_d))[flip].all())
+            and close(k64.sum(-1), c[bad].double() * n_lights)
+            and close(d64.sum(-1), r[bad].double() * n_lights)
+            and close(torch.where(flip, 0.0, k64).sum(-1),
+                      torch.where(flip, 0.0, d64).sum(-1))):
+        raise AssertionError(
+            f"culled and dense light pdf differ on {bad.numel()} lanes, "
+            "not all by lights on a triangle edge")
+    return bad.numel()
+
+
+def dense_pdf_check(lc, scene, o, d, dev, reps):
+    """The dense light pdf (shading.light_pdf_sum, the path below
+    LIGHT_CULL_MIN lights) on a full-frame shading batch, in its lane steps
+    (shading.pdf_lanes) and all lanes at once: each one's time and peak
+    device memory above what was allocated before it, the two bit-equal;
+    the culled pdf (light lists and K5) on the same lanes: its time, K5's
+    alone, and its values against the dense sum's on the read lanes
+    (rtol 2e-4, but for the lanes edge_flips explains)."""
+    import torch
+
+    from raytracer_odin_tpu_torch.ops import shading
+
+    cuda = dev.type == "cuda"
+
+    def run(lanes):
+        sync(dev)
+        base = torch.cuda.memory_allocated(dev) if cuda else 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        out = shading.light_pdf_sum(scene, o, d, lanes=lanes)
+        sync(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - base if cuda else 0
+        ms = time_ms(lambda: shading.light_pdf_sum(scene, o, d, lanes=lanes),
+                     dev, 2)
+        return out, peak / 2**30, ms
+
+    step = shading.pdf_lanes(scene.light_p.shape[0])
+    dense, peak, dense_ms = run(step)
+    whole, whole_peak, whole_ms = run(o.shape[0])
+    if not torch.equal(dense.view(torch.int32), whole.view(torch.int32)):
+        raise AssertionError("dense pdf: the lane steps change the sums")
+    del whole
+    culled = lc.light_pdf_sum_culled(scene, o, d)
+    c, r, read = read_lanes(lc, o, d, culled, dense)
+    if not bool((r > 0).any()):
+        raise AssertionError("dense pdf: no lit lane")
+    flips = edge_flips(lc, scene, o, d, culled, dense)
+    counts, lists, rays, _ = lc.light_lists(scene, o, d)
+    lr = scene.light_rows
+    return {
+        "lanes": o.shape[0], "lights": scene.light_p.shape[0],
+        "read_lanes": int(read.sum()), "nonzero": int((r > 0).sum()),
+        "edge_flip_lanes": flips, "dense_ms": dense_ms,
+        "dense_peak_gib": peak, "dense_lane_step": step,
+        "whole_batch_ms": whole_ms, "whole_batch_peak_gib": whole_peak,
+        "card_gib": (torch.cuda.get_device_properties(dev).total_memory
+                     / 2**30 if cuda else None),
+        "culled_ms": time_ms(lambda: lc.light_pdf_sum_culled(scene, o, d),
+                             dev, 2),
+        "k5_ms": time_ms(lambda: lc.light_sums_rows(lr, counts, lists, rays),
+                         dev, reps),
+        "mean_list": float(torch.where(counts < 0, lr.shape[0] // lc.LEAF_L,
+                                       counts).float().mean()),
+        "lists": counts.numel()}
 
 
 def kernel_batches(rt, integ, trav, prng, pi, scene, cfg, fov_x, dev):
@@ -1158,7 +1354,7 @@ def main(argv=None) -> int:
             if pscene.num_lights >= lc.LIGHT_CULL_MIN:
                 checks["K5 bounce 0"] = measure_k5(
                     lc, pscene, pk["shade_o"], pk["shade_d"], dev, reps,
-                    slice_blocks)
+                    slice_blocks, clock=True)
             del pk
         for k, m in checks.items():
             print(f"  [{name}] {k}: {json.dumps(m)}", flush=True)
@@ -1182,6 +1378,21 @@ def main(argv=None) -> int:
             check_launches(name, r, {"K3": DEPTH}, {}, rehearsal)
         mean = check_frame(pres, h, w)
         output.save_png(pres.stats, OUT_DIR / f"{name}.png")
+        if intersector == "pallas" and (pscene.num_lights
+                                        >= lc.LIGHT_CULL_MIN):
+            # K5 on the second bounce's light pdf inputs (the sorted,
+            # compacted batch) of one more step
+            step = rt.make_render_step(pcfg, pfov,
+                                       lane_schedule=pres.lane_schedule,
+                                       device=dev)
+            seen = light_pdf_inputs(lc, step, pscene, pres.stats,
+                                    prng.key_from_seed(pcfg.seed),
+                                    path_steps, dev)
+            checks["K5 bounce 1"] = measure_k5(lc, pscene, *seen[1], dev,
+                                               reps)
+            print(f"  [{name}] K5 bounce 1: "
+                  f"{json.dumps(checks['K5 bounce 1'])}", flush=True)
+            del seen
         if pscene.stream:
             step = rt.make_render_step(pcfg, pfov,
                                        lane_schedule=pres.lane_schedule,
@@ -1209,6 +1420,31 @@ def main(argv=None) -> int:
         del pscene
         ph.done(f"path {name}", s, f"{r['mrays']:.3f} Mrays/s; "
                 + json.dumps(info))
+
+    # 7b. the dense light pdf below LIGHT_CULL_MIN lights: citynight with
+    # one window a tower (288 lights), its full-frame bounce-0 batch
+    s = time.perf_counter()
+    night1 = Path(scene_dir) / "citynight1.gltf"
+    assets.make_citynight_scene(night1, windows_per_tower=1)
+    nhost = gltf.read_gltf(str(night1))
+    nscene = build.finish_scene(nhost, device=dev)
+    if nscene.num_lights >= lc.LIGHT_CULL_MIN:
+        raise AssertionError(f"citynight1 has {nscene.num_lights} lights")
+    ncfg = cfg.replace(samples=1)
+    no, nd = rt.camera_rays(nscene, prng.key_from_seed(ncfg.seed), 0,
+                            nhost.cam.fov_x * (WIDTH / HEIGHT), w, h)
+    nstate, _ = integ.first_bounce(nscene, no, nd,
+                                   prng.key_from_seed(ncfg.seed), 0)
+    del no, nd
+    dense_pdf = dense_pdf_check(lc, nscene, nstate[:w * h, 0:3].clone(),
+                                nstate[:w * h, 3:6].clone(), dev, reps)
+    del nstate, nscene
+    print(f"  [citynight1] dense light pdf: {json.dumps(dense_pdf)}",
+          flush=True)
+    ph.done("dense pdf", s, f"{dense_pdf['lights']} lights, dense "
+            f"{dense_pdf['dense_ms']:.3f} ms, peak "
+            f"{dense_pdf['dense_peak_gib']:.3f} GiB; culled "
+            f"{dense_pdf['culled_ms']:.3f} ms")
 
     # 8. the demo with two-phase culling
     s = time.perf_counter()
@@ -1275,6 +1511,10 @@ def main(argv=None) -> int:
     mhz4 = k4_b1.get("sm_clock_mhz")
     k4_b1 = floored("K4", k4_b1, mhz4)
     k4_b0 = floored("K4", paths["city24"]["checks"]["K4 bounce 0"], mhz4)
+    night = paths["citynight"]["checks"]
+    mhz5 = night["K5 bounce 0"].get("sm_clock_mhz")
+    k5_b0 = floored("K5", night["K5 bounce 0"], mhz5)
+    k5_b1 = floored("K5", night["K5 bounce 1"], mhz5)
 
     kernels = [
         # main entries: the demo's sorted, compacted bounce-1 batch (7 of a
@@ -1330,15 +1570,19 @@ def main(argv=None) -> int:
                    "mean_list", "overflow_lists", "overflow_mean_list",
                    "overflow_max_list")},
                "capped_lists": k4_b1["capped"], "bounce0": k4_b0}),
-        # K5: citynight's bounce-0 shading batch (full frame)
+        # K5: citynight's bounce-0 shading batch (full frame); bounce1:
+        # the second bounce's batch of one more step; dense_pdf: the dense
+        # sum K5 stands in for at 512 lights and more, on a 288-light
+        # citynight's bounce-0 batch
         entry("K5 light_sums_rows", "K5",
-              "raytracer_odin_tpu/ops/light_cull.py:103",
-              paths["citynight"]["checks"]["K5 bounce 0"],
+              "raytracer_odin_tpu/ops/light_cull.py:103", k5_b0,
               paths["citynight"]["launches"]["K5"],
               {"launches_per_step":
                    paths["citynight"]["per_step"]["K5"][0],
                "launches_in_calibration":
-                   paths["citynight"]["calibration"]["K5"]}),
+                   paths["citynight"]["calibration"]["K5"],
+               "rays": k5_b0["rays"], "mean_list": k5_b0["mean_list"],
+               "bounce1": k5_b1, "dense_pdf": dense_pdf}),
     ]
     summary = {p: {k: v[k] for k in ("triangles", "clusters", "lights", "g",
                                      "streamed", "mrays", "peak_gib")}

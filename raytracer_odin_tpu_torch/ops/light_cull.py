@@ -13,7 +13,15 @@ block bounds leave out lanes whose sum is never read (light_lists).
 
   * K5 `light_sums_rows` — the cluster-list sum (replaces `_kernel`), a
     CUDA kernel in csrc/intersect_kernels.cu beside its plain PyTorch
-    version `_light_sums_plain`.
+    version `_light_sums_plain`. The kernel has the triangle sweep's
+    design: each listed cluster's 32 rows staged by cp.async into one of
+    two shared-memory stages while the other is tested, each row read as
+    four 16-byte loads, 128-ray blocks (four to a 512-ray list), and exact
+    warp skips: a 32-ray warp in which no ray has 0 <= bu <= 1 skips the
+    rest of a light, and one in which no ray is inside (`light_inside`)
+    skips t, the weight and the add. A skipped test is an add of +0 to a
+    partial that is never -0, which changes no bit (the kernel's note says
+    why), so kernel and plain version agree bit for bit.
 
 The JAX package splits the lists into chunks of ray blocks because its
 kernel reads them from the TPU's scalar memory; one CUDA launch takes the
@@ -114,13 +122,51 @@ def _light_sums_plain(counts, lists, rays, light_rows):
     return out
 
 
+def light_inside(bu, bv):
+    """The hit test's barycentric terms, in the plain version's form
+    (every comparison false on NaN). K5's warp skips rest on it implying
+    0 <= bu <= 1."""
+    return (bu >= 0) & (bv >= 0) & (bu + bv <= 1)
+
+
+def light_terms(c, ox, oy, oz, dx, dy, dz):
+    """bu, bv and the contribution fac * t^2/|ng.d| (0 where the ray
+    misses, at t < 0, for an invalid row, and where it is NaN) of light
+    rows c [..., 16] for ray components broadcast against them."""
+    px, py, pz = c[..., 0:1], c[..., 1:2], c[..., 2:3]
+    ux, uy, uz = c[..., 3:4], c[..., 4:5], c[..., 5:6]
+    vx, vy, vz = c[..., 6:7], c[..., 7:8], c[..., 8:9]
+    ngx, ngy, ngz = c[..., 9:10], c[..., 10:11], c[..., 11:12]
+    fac, valid = c[..., 12:13], c[..., 13:14]
+    pvx = dy * vz - dz * vy
+    pvy = dz * vx - dx * vz
+    pvz = dx * vy - dy * vx
+    det = ux * pvx + uy * pvy + uz * pvz
+    inv = 1.0 / det
+    tx = ox - px
+    ty = oy - py
+    tz = oz - pz
+    bu = (tx * pvx + ty * pvy + tz * pvz) * inv
+    qx = ty * uz - tz * uy
+    qy = tz * ux - tx * uz
+    qz = tx * uy - ty * ux
+    bv = (dx * qx + dy * qy + dz * qz) * inv
+    t = (vx * qx + vy * qy + vz * qz) * inv
+    ok = light_inside(bu, bv) & (t >= 0) & (valid > 0.5)
+    # true division: |ng.d| == 0 gives +inf, which is kept
+    w = t * t / torch.abs(ngx * dx + ngy * dy + ngz * dz)
+    contrib = torch.where(ok, fac * w, 0.0)
+    contrib = torch.where(torch.isnan(contrib), 0.0, contrib)
+    return bu, bv, contrib
+
+
 def _light_sums_chunk(counts, lists, rays, light_rows):
     nb = counts.shape[0]
     n_clusters = light_rows.shape[0] // LEAF_L
     width = lists.shape[1]
     lt = light_rows.reshape(n_clusters, LEAF_L, ROW_WIDTH)
     r = rays.reshape(8, nb, pi.RB)
-    ox, oy, oz, dx, dy, dz = (r[i][:, None, :] for i in range(6))
+    comps = [r[i][:, None, :] for i in range(6)]
     overflow = counts < 0
     n_of = torch.where(overflow, n_clusters, counts)
     acc = torch.zeros((nb, pi.RB), dtype=torch.float32, device=rays.device)
@@ -130,32 +176,7 @@ def _light_sums_chunk(counts, lists, rays, light_rows):
         # rows past their count read no list entry (cluster 0 is a
         # stand-in that `active` discards)
         cid = torch.where(overflow, k, torch.where(active, listed, 0)).long()
-        c = lt[cid]                                       # [nb, LEAF_L, 16]
-        px, py, pz = c[..., 0:1], c[..., 1:2], c[..., 2:3]
-        ux, uy, uz = c[..., 3:4], c[..., 4:5], c[..., 5:6]
-        vx, vy, vz = c[..., 6:7], c[..., 7:8], c[..., 8:9]
-        ngx, ngy, ngz = c[..., 9:10], c[..., 10:11], c[..., 11:12]
-        fac, valid = c[..., 12:13], c[..., 13:14]
-        pvx = dy * vz - dz * vy
-        pvy = dz * vx - dx * vz
-        pvz = dx * vy - dy * vx
-        det = ux * pvx + uy * pvy + uz * pvz
-        inv = 1.0 / det
-        tx = ox - px
-        ty = oy - py
-        tz = oz - pz
-        bu = (tx * pvx + ty * pvy + tz * pvz) * inv
-        qx = ty * uz - tz * uy
-        qy = tz * ux - tx * uz
-        qz = tx * uy - ty * ux
-        bv = (dx * qx + dy * qy + dz * qz) * inv
-        t = (vx * qx + vy * qy + vz * qz) * inv
-        ok = ((bu >= 0) & (bv >= 0) & (bu + bv <= 1) & (t >= 0)
-              & (valid > 0.5))
-        # true division: |ng.d| == 0 gives +inf, which is kept
-        w = t * t / torch.abs(ngx * dx + ngy * dy + ngz * dz)
-        contrib = torch.where(ok, fac * w, 0.0)
-        contrib = torch.where(torch.isnan(contrib), 0.0, contrib)
+        _, _, contrib = light_terms(lt[cid], *comps)   # [nb, LEAF_L, RB]
         part = torch.zeros_like(acc)
         for j in range(LEAF_L):
             part = part + contrib[:, j]
@@ -193,6 +214,9 @@ def light_sums_rows(light_rows, counts, lists, rays):
         raise ValueError(f"light_sums_rows: unsupported device {dev}")
     from raytracer_odin_tpu_torch.ops import cuda_build
 
+    if light_rows.data_ptr() % 16:
+        # the kernel copies each cluster's rows in 16-byte pieces
+        raise ValueError("light_rows must start on a 16-byte boundary")
     out = torch.empty((npad,), dtype=torch.float32, device=dev)
     if npad == 0:
         return out

@@ -75,30 +75,58 @@ def surface_sample(scene, origin, u_idx, u1, u2):
     return normalize(world - origin, eps=1e-20)
 
 
-def light_pdf_sum(scene, o, d, chunk: int = 256):
+# Lane-light pairs a step of the dense light pdf: each [lanes, lights, 3]
+# intermediate stays near 200 MB (a whole 1080p batch against 256 lights
+# made them 6.4 GB each), and a scene with a few lights keeps its batch in
+# one step.
+PDF_PAIRS = 1 << 24
+
+
+def pdf_lanes(n_lights: int, chunk: int = 256) -> int:
+    """Lanes a step of light_pdf_sum with `chunk` lights at a time."""
+    return max(1, PDF_PAIRS // max(1, min(chunk, n_lights)))
+
+
+def light_pdf_terms(scene, o, d, s: int, e: int):
+    """bu, bv and the contributions fac * t^2/|dot(ng, d)| of lights s..e-1
+    for rays o, d [..., 3] (RAY_EPS offset applied), each [..., e - s]: the
+    contribution is 0 where the ray misses, at t < 0 and where it is NaN;
+    +inf is kept."""
+    t, bu, bv, ok = intersect_triangle(
+        o[..., None, :], d[..., None, :], scene.light_p[s:e],
+        scene.light_u[s:e], scene.light_v[s:e],
+    )
+    ok = ok & (t >= 0)
+    ng = scene.light_ng[s:e].expand(t.shape + (3,))
+    w = sq(t) / torch.abs(dot(ng, d[..., None, :]))
+    contrib = torch.where(ok, scene.light_pdf_factor[s:e] * w, 0.0)
+    return bu, bv, torch.where(torch.isnan(contrib), 0.0, contrib)
+
+
+def light_pdf_sum(scene, o, d, chunk: int = 256, lanes: int | None = None):
     """Sum of per-triangle solid-angle pdfs over ALL emissive triangles hit
     along the ray (shading.odin:52-100), divided by the light count: origin
     offset by RAY_EPS, hits counted when t >= 0, weight t^2/|dot(ng, d)|
-    times 2/|cross(u, v)|; NaN contributions count 0, +inf is kept."""
+    times 2/|cross(u, v)|; NaN contributions count 0, +inf is kept. Lights
+    go `chunk` at a time and lanes `lanes` at a time (pdf_lanes by
+    default); a lane's sum does not depend on the lanes beside it."""
     n_lights = scene.light_p.shape[0]
     if n_lights == 0:
         return torch.zeros(o.shape[:-1], dtype=torch.float32, device=o.device)
+    lanes = lanes or pdf_lanes(n_lights, chunk)
     o = o + d * RAY_EPS
-    total = torch.zeros(o.shape[:-1], dtype=torch.float32, device=o.device)
-    for s in range(0, n_lights, chunk):
-        e = min(n_lights, s + chunk)
-        p = scene.light_p[s:e]
-        t, _, _, ok = intersect_triangle(
-            o[..., None, :], d[..., None, :], p, scene.light_u[s:e],
-            scene.light_v[s:e],
-        )
-        ok = ok & (t >= 0)
-        ng = scene.light_ng[s:e].expand(t.shape + (3,))
-        w = sq(t) / torch.abs(dot(ng, d[..., None, :]))
-        contrib = torch.where(ok, scene.light_pdf_factor[s:e] * w, 0.0)
-        contrib = torch.where(torch.isnan(contrib), 0.0, contrib)
-        total = total + torch.sum(contrib, dim=-1)
-    return total / n_lights
+    o2, d2 = o.reshape(-1, 3), d.reshape(-1, 3)
+    sums = []
+    for a in range(0, max(1, o2.shape[0]), lanes):
+        oa, da = o2[a:a + lanes], d2[a:a + lanes]
+        acc = torch.zeros(oa.shape[:1], dtype=torch.float32, device=o.device)
+        for s in range(0, n_lights, chunk):
+            contrib = light_pdf_terms(scene, oa, da, s, min(n_lights,
+                                                            s + chunk))[2]
+            acc = acc + torch.sum(contrib, dim=-1)
+        sums.append(acc)
+    total = sums[0] if len(sums) == 1 else torch.cat(sums)
+    return (total / n_lights).reshape(o.shape[:-1])
 
 
 def vndf_sample(n, omega, alpha, u1, u2):

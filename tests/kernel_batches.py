@@ -1,5 +1,6 @@
-"""Adversarial inputs for the port's mask kernel (K1) and the sweep kernel
-of K2, K3 and K4, and a CPU model of the sweep's warp skips.
+"""Adversarial inputs for the port's mask kernel (K1), the sweep kernel of
+K2, K3 and K4 and the light kernel K5, and CPU models of the sweep's and
+K5's warp skips.
 
 The batches are built with numpy from a seed. Each holds what a sweep's
 rounding rules are most likely to get wrong: triangles of a grid mesh that
@@ -9,16 +10,20 @@ pad rows, dead lanes carrying NaN, direction components at +-0 and at the
 1e-30 clamp, and warps in which a single lane can pass the bu test.
 The sweep batches come in three forms, one per instance of the sweep
 kernel (SWEEPS): K2's 256-ray lists, K4's 512-ray lists, and K3's sweep of
-every cluster by every 512-ray block.
+every cluster by every 512-ray block. K5's batches (light_batch) aim the
+same rays at light rows: the meshes again, with fac of either sign, and
+rows with |ng.d| = 0 for rays straight down, invalid rows with real
+geometry, subnormal edges, special fac values and zero pad rows.
 `tests/test_torch_gpu.py` holds the CUDA kernels bit-equal to their plain
 versions on them; `tests/test_torch_kernel_rules.py` holds the warp-skip
-model bit-equal to the plain sweep on them, on the CPU. Neither imports
+models bit-equal to the plain versions on them, on the CPU. Neither imports
 jax, so the card tests run where there is none."""
 
 import numpy as np
 import torch
 
 from raytracer_odin_tpu_torch.ops import culling
+from raytracer_odin_tpu_torch.ops import light_cull as lc
 from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
 from raytracer_odin_tpu_torch.ops import traverse
 
@@ -296,3 +301,109 @@ def mask_batch(case: str, tmax_row: bool):
 
 MASK_CASES = ("nan_lanes", "zero_dirs", "shared_edges", "one_lane",
               "signed_zeros")
+
+
+# ---------------------------------------------------------------------------
+# K5: the light-cluster pdf sum.
+# ---------------------------------------------------------------------------
+
+def light_rows() -> np.ndarray:
+    """[Lpad, 16] light rows (p u v ng fac valid pad, 10 clusters of 32):
+    clusters 0-3 the mesh at z = 0 (ng +z, fac 2), 4-7 the mesh at z = -1
+    with the other winding and fac -3, then one cluster of special rows:
+    pairs at z = 0.5 with ng along +x (|ng.d| = 0 for rays straight down)
+    and fac 2 and -2 (+inf and -inf, a NaN partial), invalid rows with real
+    geometry, rows with subnormal edges (det subnormal: the full
+    reciprocal), fac NaN, +inf, -0 and subnormal; and the last cluster
+    zero pad rows but one, as pack_light_rows pads."""
+    rng = np.random.default_rng(75)
+    mesh = mesh_rows(0.0)
+    lower = mesh_rows(-1.0, flip=True)
+    rows = np.zeros((10 * 32, 16), np.float32)
+    rows[0:128, 0:9] = mesh
+    rows[0:128, 9:12] = [0, 0, 1]
+    rows[0:128, 12] = 2.0
+    rows[128:256, 0:9] = lower
+    rows[128:256, 9:12] = [0, 0, -1]
+    rows[128:256, 12] = -3.0
+    rows[0:256, 13] = 1.0
+    sp = rows[256:288]
+    base = mesh[rng.integers(0, len(mesh), 32)]
+    sp[:, 0:9] = base
+    sp[:, 2] = 0.5
+    sp[:, 9:12] = [0, 0, 1]
+    sp[:, 12] = rng.uniform(0.5, 4, 32)
+    sp[:, 13] = 1.0
+    # |ng.d| = 0 for rays straight down, fac of both signs on one spot
+    sp[0:8, 9:12] = [1, 0, 0]
+    sp[0:8:2, 0:9] = sp[1:8:2, 0:9]
+    sp[0:8:2, 12] = 2.0
+    sp[1:8:2, 12] = -2.0
+    sp[8:14, 13] = 0.0                     # invalid, real geometry
+    sp[14:18, 3:9] *= np.float32(1e-39)    # subnormal edges
+    sp[18, 12], sp[19, 12] = np.nan, np.inf
+    sp[20, 12], sp[21, 12] = -0.0, np.float32(1e-40)
+    last = rows[288:320]
+    last[0] = sp[24]
+    return rows
+
+
+LIGHT_CASES = ("nan_lanes", "zero_dirs", "shared_edges", "one_lane",
+               "counts", "width1")
+
+
+def light_batch(case: str):
+    """(light_rows, counts, lists, rays) of one adversarial K5 case on the
+    CPU, one list per 512-ray block: every cluster, in an order that
+    differs between blocks, unless the case makes its own: "counts" sets
+    counts of -1 and 0 and short lists, "width1" keeps one entry a list
+    with counts -1, 0, 1 and 2 (a count past the width repeats the entry)."""
+    lr = torch.from_numpy(light_rows())
+    nc = lr.shape[0] // 32
+    r = rays(case if case in RAY_CASES else "zero_dirs")
+    nb = r.shape[1] // pi.RB
+    rng = np.random.default_rng(76)
+    lists = torch.from_numpy(np.stack([rng.permutation(nc) for _ in
+                                       range(nb)]).astype(np.int32))
+    counts = torch.full((nb,), nc, dtype=torch.int32)
+    if case == "counts":
+        counts = torch.tensor([-1, 0, 3, nc, -1, 1, 0, 7],
+                              dtype=torch.int32)[:nb].contiguous()
+    elif case == "width1":
+        lists = lists[:, :1].contiguous()
+        counts = torch.tensor([-1, 0, 1, 2], dtype=torch.int32).repeat(
+            -(-nb // 4))[:nb].contiguous()
+    return lr, counts, lists, r
+
+
+def light_with_warp_skips(counts, lists, rays_, light_rows_):
+    """A CPU model of the CUDA K5's control flow: the plain sum, except
+    that a light is added for a ray only when some ray of its WARP_RAYS-ray
+    warp has 0 <= bu <= 1 and some ray of it is inside (light_inside), as
+    the kernel skips the rest of the test otherwise; a skipped light adds
+    nothing to the partial. Returns [Npad] like the plain version."""
+    npad = rays_.shape[1]
+    n_clusters = light_rows_.shape[0] // lc.LEAF_L
+    lt = light_rows_.reshape(n_clusters, lc.LEAF_L, lc.ROW_WIDTH)
+    out = torch.zeros((npad,), dtype=torch.float32)
+
+    def warp(m):
+        return (m.reshape(lc.LEAF_L, -1, WARP_RAYS).any(-1)
+                .repeat_interleave(WARP_RAYS, 1))
+
+    for s in range(npad // pi.RB):
+        r = rays_[:, s * pi.RB:(s + 1) * pi.RB]
+        comps = [r[i][None] for i in range(6)]
+        acc = torch.zeros((pi.RB,), dtype=torch.float32)
+        count = int(counts[s])
+        for k in range(n_clusters if count < 0 else count):
+            cid = k if count < 0 else int(lists[s, min(k, lists.shape[1] - 1)])
+            bu, bv, contrib = lc.light_terms(lt[cid], *comps)  # [LEAF_L, RB]
+            tested = (warp((bu >= 0) & (bu <= 1))
+                      & warp(lc.light_inside(bu, bv)))
+            part = torch.zeros((pi.RB,), dtype=torch.float32)
+            for j in range(lc.LEAF_L):
+                part = torch.where(tested[j], part + contrib[j], part)
+            acc = acc + part
+        out[s * pi.RB:(s + 1) * pi.RB] = acc
+    return out

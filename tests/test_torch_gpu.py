@@ -321,3 +321,37 @@ def test_light_kernel_bit_equal(cuda):
     assert light_cull.light_sums_rows.launches == before + 1
     assert int((got > 0).sum()) > 1000
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", kb.LIGHT_CASES)
+def test_light_kernel_adversarial(cuda, case):
+    """K5 on tests/kernel_batches.py's adversarial light batches: NaN dead
+    lanes, +-0 and clamped direction components, rays through shared edges,
+    warps where one lane alone passes bu (the warp skips), counts -1 and 0,
+    one-entry lists; lights with |ng.d| = 0 and fac of both signs (+-inf
+    and +inf + -inf partials), invalid rows with real geometry, subnormal
+    edges (the full reciprocal), fac NaN, +inf, -0 and subnormal, and pad
+    rows."""
+    lr, counts, lists, rays = (x.to(cuda) for x in kb.light_batch(case))
+    before = light_cull.light_sums_rows.launches
+    got = light_cull.light_sums_rows(lr, counts, lists, rays)
+    want = light_cull._light_sums_plain(counts, lists, rays, lr)
+    torch.cuda.synchronize()
+    assert light_cull.light_sums_rows.launches == before + 1
+    assert int((want > 0).sum()) > 40
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_light_kernel_refuses_misaligned_rows(cuda):
+    """The kernel copies a cluster's rows in 16-byte pieces: light rows
+    that do not start on a 16-byte boundary are refused, not launched."""
+    lr, counts, lists, rays = (x.to(cuda) for x in kb.light_batch("counts"))
+    flat = torch.zeros(lr.numel() + 1, device=cuda)
+    shifted = flat[1:].view(lr.shape)
+    shifted.copy_(lr)
+    before = light_cull.light_sums_rows.launches
+    with pytest.raises(ValueError):
+        light_cull.light_sums_rows(shifted, counts, lists, rays)
+    assert light_cull.light_sums_rows.launches == before

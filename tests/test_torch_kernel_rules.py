@@ -1,7 +1,8 @@
-"""The exactness arguments of the port's redesigned CUDA kernels K1 (mask)
-and the sweep of K2, K3 and K4, checked on the CPU on adversarial float32
-values: NaN, +-0, +-inf, subnormals, BIG pad rows and direction components
-at the 1e-30 clamp.
+"""The exactness arguments of the port's redesigned CUDA kernels K1 (mask),
+the sweep of K2, K3 and K4, and K5 (light-cluster pdf), checked on the CPU
+on adversarial float32 values: NaN, +-0, +-inf, subnormals, BIG pad rows
+and direction components at the 1e-30 clamp; for K5 also |ng.d| = 0,
+fac < 0 and invalid light rows with real geometry.
 
 * The sweep's warp skip: a warp skips the rest of a triangle's test when no
   ray of it has 0 <= bu <= 1. That is exact because the inside test, as
@@ -10,6 +11,12 @@ at the 1e-30 clamp.
   argument; a CPU model of both (`kernel_batches.sweep_with_warp_skips`)
   is held bit-equal to the plain sweep, at 256- and 512-ray lists and
   over every cluster.
+* K5's warp skips: the same implication for the plain light test's inside
+  form (`light_cull.light_inside`, bu + bv <= 1), and the rule that makes
+  a skipped light exact: the partial starts at +0, no add makes it -0, and
+  adding +0 to it changes no bit. A CPU model of the kernel's skips
+  (`kernel_batches.light_with_warp_skips`) is held bit-equal to the plain
+  sum.
 * K1's PTX min.NaN / max.NaN: they propagate NaN as torch.minimum /
   torch.maximum do, but for a -0 / +0 pair may return the other zero. A
   numpy model of K1 with each choice of zero gives the plain version's
@@ -24,6 +31,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from raytracer_odin_tpu_torch.ops import light_cull as lc
 from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
 import kernel_batches as kb
 
@@ -66,10 +74,21 @@ def _skip_pairs(case):
         tris = torch.from_numpy(kb.triangles())
         tri9 = tris[:, :9]
         bus, bvs = [], []
-        for rc in ("nan_lanes", "zero_dirs", "shared_edges", "one_lane"):
+        for rc in kb.RAY_CASES:
             r = kb.rays(rc)
             bu, bv, _ = pi.moller_trumbore(tri9, *(r[i][None]
                                                    for i in range(6)))
+            bus.append(bu.flatten())
+            bvs.append(bv.flatten())
+        return torch.cat(bus), torch.cat(bvs)
+    elif case == "light_terms":
+        # bu, bv as the plain light sum computes them: every adversarial
+        # ray batch against every light row, zero pad rows included
+        lr = torch.from_numpy(kb.light_rows())
+        bus, bvs = [], []
+        for rc in kb.RAY_CASES:
+            r = kb.rays(rc)
+            bu, bv, _ = lc.light_terms(lr, *(r[i][None] for i in range(6)))
             bus.append(bu.flatten())
             bvs.append(bv.flatten())
         return torch.cat(bus), torch.cat(bvs)
@@ -79,33 +98,52 @@ def _skip_pairs(case):
             torch.from_numpy(np.ascontiguousarray(bv, F32).ravel()))
 
 
-def _check_skip(bu, bv):
-    inside = pi.inside_triangle(bu, bv)
+# The inside test whose implication each kernel's first warp skip rests on:
+# the sweep's min(min(bu, bv), 1 - (bu + bv)) >= 0 form, and K5's
+# bu + bv <= 1 form.
+INSIDE = {"sweep": pi.inside_triangle, "K5": lc.light_inside}
+
+
+def _check_skip(bu, bv, inside_fn):
+    inside = inside_fn(bu, bv)
     passes = (bu >= 0) & (bu <= 1)
     assert bool(passes[inside].all()), (bu[inside & ~passes],
                                         bv[inside & ~passes])
     return inside
 
 
-@settings(max_examples=3000, deadline=None, derandomize=True, database=None)
-@given(st.floats(width=32), st.floats(width=32))
-def _check_skip_drawn(bu, bv):
-    _check_skip(torch.tensor([bu], dtype=torch.float32),
-                torch.tensor([bv], dtype=torch.float32))
+def _check_skip_drawn(inside_fn):
+    @settings(max_examples=3000, deadline=None, derandomize=True,
+              database=None)
+    @given(st.floats(width=32), st.floats(width=32))
+    def check(bu, bv):
+        _check_skip(torch.tensor([bu], dtype=torch.float32),
+                    torch.tensor([bv], dtype=torch.float32), inside_fn)
+
+    check()
 
 
-@pytest.mark.parametrize("case", ["special_pairs", "near_one", "sweep_terms",
-                                  "hypothesis"])
-def test_inside_implies_warp_skip_predicate(case):
-    """Wherever the plain sweep's inside test holds, 0 <= bu <= 1 holds:
-    a warp with no ray at 0 <= bu <= 1 has no ray inside."""
+SKIP_CASES = ([("sweep", c) for c in ("special_pairs", "near_one",
+                                      "sweep_terms", "hypothesis")]
+              + [("K5", c) for c in ("special_pairs", "near_one",
+                                     "light_terms", "hypothesis")])
+
+
+@pytest.mark.parametrize("kernel, case", [
+    pytest.param(k, c, id=c if k == "sweep" else f"{k}-{c}")
+    for k, c in SKIP_CASES])
+def test_inside_implies_warp_skip_predicate(kernel, case):
+    """Wherever the plain sweep's (or the plain light sum's) inside test
+    holds, 0 <= bu <= 1 holds: a warp with no ray at 0 <= bu <= 1 has no
+    ray inside."""
+    inside_fn = INSIDE[kernel]
     if case == "hypothesis":
-        _check_skip_drawn()
+        _check_skip_drawn(inside_fn)
         return
     bu, bv = _skip_pairs(case)
-    inside = _check_skip(bu, bv)
+    inside = _check_skip(bu, bv, inside_fn)
     assert bool(inside.any()) and not bool(inside.all())
-    if case == "sweep_terms":
+    if case.endswith("_terms"):
         assert bool(torch.isnan(bu).any()) and bool(torch.isinf(bu).any())
 
 
@@ -135,6 +173,65 @@ def test_warp_skip_model_matches_plain_sweep(kernel, case):
         copy = hit & (want[1] >= 2 * pi.LEAF) & (want[1] < 4 * pi.LEAF)
         assert bool(copy.any()) != (kernel == "K3")
         assert bool((hit & (want[1] < 2 * pi.LEAF)).any())
+
+
+@pytest.mark.parametrize("case", kb.LIGHT_CASES)
+def test_light_warp_skip_model_matches_plain(case):
+    """The CPU model of K5's two warp skips gives the plain light sum bit
+    for bit on every adversarial batch: NaN dead lanes, +-0 and clamped
+    directions, rays through shared edges, warps where one lane alone
+    passes bu, counts -1 and 0, one-entry lists; lights with |ng.d| = 0
+    and fac of both signs (+-inf, a NaN partial), invalid rows with real
+    geometry, subnormal edges, fac NaN, +inf, -0 and subnormal, pad rows."""
+    lr, counts, lists, r = kb.light_batch(case)
+    want = lc._light_sums_plain(counts, lists, r, lr)
+    got = kb.light_with_warp_skips(counts, lists, r, lr)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert int((want > 0).sum()) > 40 and int((want < 0).sum()) > 40
+    if case == "zero_dirs":
+        # rays straight down meet the lights with |ng.d| = 0: +-inf
+        # contributions, and +inf + -inf partials
+        assert bool(torch.isinf(want).any()) and bool(torch.isnan(want).any())
+
+
+def _partials():
+    """Values a partial sum can hold, and values added to it: the special
+    float32 values, the default NaN of +inf + -inf, and every contribution
+    of the adversarial light batches."""
+    inf = torch.tensor([np.inf], dtype=torch.float32)
+    contribs = []
+    for case in kb.RAY_CASES:
+        r = kb.rays(case)
+        _, _, c = lc.light_terms(torch.from_numpy(kb.light_rows()),
+                                 *(r[i][None] for i in range(6)))
+        contribs.append(torch.unique(c.flatten()))
+    c = torch.cat(contribs)
+    assert bool((c == 0).any() & torch.signbit(c).any())   # -0 among them
+    assert bool(torch.isposinf(c).any() & torch.isneginf(c).any())
+    return torch.cat([torch.from_numpy(SPECIAL), inf + -inf, c])
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.parametrize("rule", ["no_sum_is_negative_zero",
+                                  "plus_zero_is_identity"])
+def test_light_partial_zero_rule(rule):
+    """A skipped K5 test adds nothing where the plain sum adds +0: exact
+    because a partial that starts at +0 never becomes -0 (a sum of a value
+    that is not -0 and any value is not -0), and adding +0 to a value that
+    is not -0 leaves every bit as it was, +-inf and NaN included."""
+    v = _partials()
+    neg_zero = (v == 0) & torch.signbit(v)
+    x = v[~neg_zero]
+    if rule == "no_sum_is_negative_zero":
+        for x0 in range(0, x.numel(), 1024):
+            s = x[x0:x0 + 1024, None] + v[None, :]
+            assert not bool(((s == 0) & torch.signbit(s)).any())
+    else:
+        assert torch.equal(_bits(x + torch.zeros_like(x)), _bits(x))
+        assert bool(torch.isnan(x).any() & torch.isinf(x).any())
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ from raytracer_odin_tpu_torch.ops import light_cull as tlc
 from raytracer_odin_tpu_torch.ops import shading as tsh
 from tests.test_lightcull import grid_light_scene
 from tests.torch_parity import torch_scene
+from tests.test_torch_smoke_sass import _chip_smoke
 
 RTOL, ATOL = 2e-4, 1e-6
 
@@ -218,6 +219,92 @@ def test_many_lights_take_culled_pdf(citynight_pair, monkeypatch):
                           _t(out_d), True)
     assert calls == [(n, 3)]
     _close(want, got)
+
+
+@pytest.mark.parametrize("lanes", [1, 7, 512, 1000])
+def test_dense_pdf_lane_steps_bit_equal(grid_pair, lanes):
+    """The dense light pdf (288 lights: two chunks of lights) in steps of
+    `lanes` lanes gives every lane the bits of the sum over the whole
+    batch at once, NaN lanes, far points and [..., 3] batch shapes
+    included."""
+    _, ts = grid_pair
+    rng = np.random.default_rng(12)
+    o, d = _down_rays(rng, 3000, [0, 2.0, 0], [24, 6.0, 24])
+    o[::13] = np.nan
+    d[5::17] = np.nan
+    o[3::19] = d[3::19] * 3.0e38
+    o, d = _t(o).reshape(100, 30, 3), _t(d).reshape(100, 30, 3)
+    whole = tsh.light_pdf_sum(ts, o, d, lanes=o.shape[0] * o.shape[1])
+    got = tsh.light_pdf_sum(ts, o, d, lanes=lanes)
+    assert got.shape == (100, 30)
+    assert int((whole > 0).sum()) > 200
+    assert torch.equal(got.view(torch.int32), whole.view(torch.int32))
+    # by default a 1080p batch against a few lights is one step (no more
+    # launches than one sum), and against 256 lights at a time 65,536 lanes
+    assert tsh.pdf_lanes(4) >= 1920 * 1080 and tsh.pdf_lanes(288) == 65536
+
+
+@pytest.fixture(scope="module")
+def citynight1(tmp_path_factory):
+    """citynight with one window a tower: 288 lights, below LIGHT_CULL_MIN
+    (the dense sum's scenes), windows on faces in three orientations."""
+    from raytracer_odin_tpu_torch.io import gltf as tgltf
+    from raytracer_odin_tpu_torch.models import assets as tassets
+    from raytracer_odin_tpu_torch.models import build as tbuild
+
+    path = tmp_path_factory.mktemp("citynight1") / "citynight1.gltf"
+    tassets.make_citynight_scene(path, windows_per_tower=1)
+    ts = tbuild.finish_scene(tgltf.read_gltf(str(path)), device="cpu")
+    assert ts.light_p.shape[0] == 288
+    return ts
+
+
+def _edge_rays(ts, n, seed):
+    """Rays aimed at points on light triangles' edges: the edge bv = 0 and
+    the diagonal a quad's two triangles share."""
+    rng = np.random.default_rng(seed)
+    lp, lu, lv = (x.numpy() for x in (ts.light_p, ts.light_u, ts.light_v))
+    i = rng.integers(0, len(lp), n)
+    s = rng.uniform(0, 1, (n, 1)).astype(np.float32)
+    q = np.where((np.arange(n) % 2 == 0)[:, None], lp[i] + s * lu[i],
+                 lp[i] + lu[i] + s * (lv[i] - lu[i])).astype(np.float32)
+    o = (q + rng.normal(0, 10, (n, 3))).astype(np.float32)
+    d = q - o
+    return _t(o), _t((d / np.linalg.norm(d, axis=-1, keepdims=True))
+                     .astype(np.float32))
+
+
+@pytest.mark.parametrize("case", ["same_order", "other_order", "tampered"])
+def test_edge_flips_explained(citynight1, monkeypatch, case):
+    """chip_smoke's culled-vs-dense gate at full frame (edge_flips): where
+    the dense sum rounds its dot products in another order than K5 (as
+    torch's sum over three lanes does on the card: (a0 + a2) + a1), rays
+    through light edges are hit in one arithmetic and not the other; each
+    such lane is explained by lights on an edge. On the CPU both sums
+    round alike and no lane differs; a lane that differs otherwise (a
+    culled sum scaled by 3) is refused."""
+    from raytracer_odin_tpu_torch.ops import geometry
+
+    cs = _chip_smoke()
+    o, d = _edge_rays(citynight1, 4000, 13)
+    culled = tlc.light_pdf_sum_culled(citynight1, o, d)
+    if case == "other_order":
+        def tree_dot(a, b):
+            return ((a[..., 0] * b[..., 0] + a[..., 2] * b[..., 2])
+                    + a[..., 1] * b[..., 1])
+
+        monkeypatch.setattr(geometry, "dot", tree_dot)
+        monkeypatch.setattr(tsh, "dot", tree_dot)
+    dense = tsh.light_pdf_sum(citynight1, o, d)
+    assert int((dense > 0).sum()) > 1000
+    if case == "tampered":
+        lane = int(torch.nonzero(dense > 0)[0])
+        culled[lane] *= 3
+        with pytest.raises(AssertionError, match="triangle edge"):
+            cs.edge_flips(tlc, citynight1, o, d, culled, dense)
+        return
+    flips = cs.edge_flips(tlc, citynight1, o, d, culled, dense)
+    assert (flips > 100) == (case == "other_order")
 
 
 def test_light_wrapper_refuses_bad_input(grid_pair):
