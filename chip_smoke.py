@@ -64,9 +64,28 @@ wall time:
                  code 0, the performance summary and Throughput line, a PNG
                  under chiprun_out/ that decodes to 1080x1920x3, the launch
                  counts of the compacted main path; then --oracle on the cube
- 10. with --profile: one more step of each path under torch.profiler,
+ 10. debug       the debug surface on the demo at 1920x1080, depth 8,
+                 DEBUG_STEPS steps of 1 spp, debug_features=True (ten AOV
+                 layers, uncompacted, no calibration): K1 and K2 against
+                 their plain versions, bit for bit, on the whole full-width
+                 sorted bounce-1 batch of the uncompacted route (dead lanes
+                 included, sorted last), with times and bounds; the launch
+                 counts (K1 8 and K2 8 a step, none in calibration),
+                 overflow 0, peak memory; the beauty layer bit-equal to a
+                 beauty-only compact="off" render of the same seed; the AOVs'
+                 ranges; the device ray log of one lane against the full
+                 frame on a grid of pixels, one on the floor, one whose path
+                 reaches an emitter, one whose path escapes, and a primary
+                 miss (the cube at the same frame: the demo's camera sees no
+                 sky): its first t bit-equal to the depth AOV, its segments
+                 the bounces AOV; the preview's overlays and its HTTP server
+                 on 127.0.0.1; one more step with --debug-nans' check,
+                 bit-equal to one without; the CLI with --debug --layer depth
+                 --preview-file; Mrays/s and step time beside the compacted
+                 demo's
+ 11. with --profile: one more step of each path under torch.profiler,
      device time by kernel class and the device's busy share
- 11. the kernels JSON line (K1-K5 and K1 with its tmax row; each with its
+ 12. the kernels JSON line (K1-K5 and K1 with its tmax row; each with its
      design and registers, its SASS counts, SM clock and issue floors, K2-K5
      with their warp-vote rates), then the {"ok": true, ...} line.
 
@@ -178,6 +197,10 @@ MEAN_RTOL, PASS_FRACTION, MAX_ABS = 1e-3, 0.95, 0.1
 TWO_PHASE_K = 2
 # The CLI path's output image, under the gitignored chiprun_out/.
 CLI_PNG = ROOT / "chiprun_out" / "cli_demo.png"
+# Timed steps of the debug path, and its CLI's depth layer and snapshot.
+DEBUG_STEPS = 2
+DEBUG_PNG = ROOT / "chiprun_out" / "debug_depth.png"
+DEBUG_SNAP = ROOT / "chiprun_out" / "debug_snapshot.png"
 
 
 class Phases:
@@ -756,14 +779,8 @@ def measure_k5(lc, scene, o, d, dev, reps, slice_blocks=None,
                  reps)
     plain_ms = time_ms(
         lambda: lc._light_sums_plain(counts, lists, rays, lr), dev, 1)
-    n_clusters = lr.shape[0] // lc.LEAF_L
-    swept = int(torch.where(counts < 0, n_clusters, counts).sum())
-    npad = rays.shape[1]
+    swept, tests, b_ms, b_by = k5_work(lc, counts, lists, rays, lr)
     rb = lc.pi.RB
-    tests = swept * lc.LEAF_L * rb
-    nbytes = (6 * 4 * npad + 4 * npad + counts.numel() * 4
-              + lists.numel() * 4 + lr.numel() * 4)
-    b_ms, b_by = bound_ms(nbytes, K5_OPS_PER_TEST * tests)
     out = {"rays": n, "lists": counts.numel(),
            "overflow_lists": int((counts < 0).sum()),
            "mean_list": swept / counts.numel(), "ray_light_tests": tests,
@@ -796,6 +813,21 @@ def measure_k5(lc, scene, o, d, dev, reps, slice_blocks=None,
                                                    culled, dense)
     return dict(out, dense_check_lanes=int(read.sum()),
                 dense_check_nonzero=int((r > 0).sum()))
+
+
+def k5_work(lc, counts, lists, rays, lr):
+    """(clusters swept, ray-light tests, bound ms, bound by) of K5 on
+    (counts, lists, rays) over light rows lr: each input read once, the sums
+    written once, K5_OPS_PER_TEST a test of what these lists sweep."""
+    import torch
+
+    n_clusters = lr.shape[0] // lc.LEAF_L
+    swept = int(torch.where(counts < 0, n_clusters, counts).sum())
+    npad = rays.shape[1]
+    tests = swept * lc.LEAF_L * lc.pi.RB
+    nbytes = (6 * 4 * npad + 4 * npad + counts.numel() * 4
+              + lists.numel() * 4 + lr.numel() * 4)
+    return (swept, tests) + bound_ms(nbytes, K5_OPS_PER_TEST * tests)
 
 
 def read_lanes(lc, o, d, *sums):
@@ -929,6 +961,7 @@ def dense_pdf_check(lc, scene, o, d, dev, reps):
     flips = edge_flips(lc, scene, o, d, culled, dense)
     counts, lists, rays, _ = lc.light_lists(scene, o, d)
     lr = scene.light_rows
+    _, k5_tests, k5_bound, k5_by = k5_work(lc, counts, lists, rays, lr)
     return {
         "lanes": o.shape[0], "lights": scene.light_p.shape[0],
         "read_lanes": int(read.sum()), "nonzero": int((r > 0).sum()),
@@ -941,6 +974,8 @@ def dense_pdf_check(lc, scene, o, d, dev, reps):
                              dev, 2),
         "k5_ms": time_ms(lambda: lc.light_sums_rows(lr, counts, lists, rays),
                          dev, reps),
+        "k5_ray_light_tests": k5_tests, "k5_bound_ms": k5_bound,
+        "k5_bound_by": k5_by,
         "mean_list": float(torch.where(counts < 0, lr.shape[0] // lc.LEAF_L,
                                        counts).float().mean()),
         "lists": counts.numel()}
@@ -1465,6 +1500,20 @@ def main(argv=None) -> int:
     ph.done("path cli", s, f"{cli_r['mrays']:.2f} Mrays/s (the CLI's "
             f"Throughput line); {json.dumps(cli_r)}")
 
+    # 10. the debug surface on the demo
+    s = time.perf_counter()
+    dbg = debug_path(rt, trav, pi, scene, cfg, fov_x, dev, counters, reps,
+                     card, demo, demo_gltf, scene_dir, rehearsal,
+                     args.profile)
+    paths["debug"] = dict(dbg, triangles=scene.num_triangles,
+                          clusters=scene.cluster_lo.shape[0],
+                          lights=scene.num_lights, g=kb["g"],
+                          streamed=False)
+    ph.done("path debug", s, f"{dbg['mrays']:.3f} Mrays/s, step "
+            f"{dbg['step_ms']:.3f} ms (compacted demo {demo['mrays']:.3f} "
+            f"Mrays/s, step {dbg['demo_step_ms']:.3f} ms, in this run; "
+            f"{card})")
+
     if args.profile:
         s = time.perf_counter()
         profile_step(rt, res.stats, scene, cfg, fov_x,
@@ -1527,7 +1576,8 @@ def main(argv=None) -> int:
                "rays": k1_b1["rays"], "bounce0": k1_b0,
                "launches_by_path": by_path("K1"),
                "city24_bounce1": floored(
-                   "K1", paths["city24"]["checks"]["K1 bounce 1"], mhz1)}),
+                   "K1", paths["city24"]["checks"]["K1 bounce 1"], mhz1),
+               "debug_bounce1": paths["debug"]["k1"]}),
         # K1 with its tmax row: the demo's sorted bounce-1 batch with
         # phase A's t in row 6, on the twophase path
         entry("K1 cluster_masks_rows tmax_row", "K1 tmax",
@@ -1546,7 +1596,8 @@ def main(argv=None) -> int:
                "rays": k2_b1["rays"], "bounce0": k2_b0,
                "launches_by_path": by_path("K2"),
                "city_bounce1": floored(
-                   "K2", paths["city"]["checks"]["K2 bounce 1"], mhz2)}),
+                   "K2", paths["city"]["checks"]["K2 bounce 1"], mhz2),
+               "debug_bounce1": paths["debug"]["k2"]}),
         # K3: the brute path's bounce-0 camera rays (every bounce sweeps
         # every cluster, uncompacted)
         entry("K3 intersect_brute_rows", "K3",
@@ -1745,6 +1796,310 @@ def twophase_path(rt, trav, pi, scene, cfg, fov_x, dev, counters, kb,
           f"{float(abs(got - single).max()):.3g}, {within:.6f} of values "
           "within rtol 1e-4, atol 1e-5", flush=True)
     return dict(r, k1_tmax=check)
+
+
+def uncompacted_batch(rt, trav, pi, scene, cfg, fov_x, dev):
+    """The inputs of K1 and of the list sweep at bounce 1 of the uncompacted
+    trace (traverse.cast_rays_pallas(sort=True, alive=...)) in the first
+    sample of `cfg`, recorded as the route builds them: K1's rows over every
+    lane of the frame (dead lanes as far rays; the rows pack_rays packs in
+    traverse.sort_exact, the second packing of the sample after bounce 0's
+    tiled rows), and the sorted batch with its masks (dead lanes last).
+    Kernel wrappers and their counts are untouched."""
+    real_pack, real_sweep = pi.pack_rays, trav._sweep_exact
+    seen = {"pack": [], "sweep": []}
+
+    def pack(o, d):
+        out = real_pack(o, d)
+        if len(seen["pack"]) < 2:
+            seen["pack"].append(out[0].clone())
+        return out
+
+    def sweep(scene_, words, rays, g, n_super, cap=256):
+        if len(seen["sweep"]) < 2:
+            seen["sweep"].append((words.clone(), rays.clone()))
+        return real_sweep(scene_, words, rays, g, n_super, cap)
+
+    from raytracer_odin_tpu_torch.utils import prng
+
+    pi.pack_rays, trav._sweep_exact = pack, sweep
+    try:
+        _, aux = rt.sample_pass(scene, prng.key_from_seed(cfg.seed), 0,
+                                fov_x, cfg.width, cfg.height,
+                                rt._trace_options(cfg))
+        sync(dev)
+    finally:
+        pi.pack_rays, trav._sweep_exact = real_pack, real_sweep
+    g, n_super, aabb8 = trav.exact_cull_layout(scene)
+    words, rays = seen["sweep"][1]
+    k1_rays = seen["pack"][1]
+    n = cfg.width * cfg.height
+    n_alive = int(aux["alive_counts"][1])
+    # sorted dead lanes are degenerate far +x rays with empty masks
+    dead = rays[3, n_alive:n]
+    if not (0 < n_alive < n and bool((dead == 1.0).all())
+            and k1_rays.shape == rays.shape):
+        raise AssertionError(f"uncompacted bounce-1 batch: {n_alive} of {n} "
+                             "lanes alive, dead lanes not sorted last")
+    return {"k1_rays": k1_rays, "aabb8": aabb8, "g": g,
+            "n_super": n_super, "words": words, "rays": rays,
+            "lanes": n, "alive": n_alive}
+
+
+def light_hit(scene, point, eps=1e-3) -> bool:
+    """Whether `point` [3] lies on one of the scene's light triangles."""
+    import numpy as np
+
+    p = scene.light_p.cpu().numpy()
+    u = scene.light_u.cpu().numpy()
+    v = scene.light_v.cpu().numpy()
+    ng = scene.light_ng.cpu().numpy()
+    q = np.asarray(point, np.float64) - p
+    n = ng / np.linalg.norm(ng, axis=-1, keepdims=True)
+    on_plane = np.abs((q * n).sum(-1)) < eps
+    # barycentrics of q in (u, v)
+    uu, vv, uv = (u * u).sum(-1), (v * v).sum(-1), (u * v).sum(-1)
+    qu, qv = (q * u).sum(-1), (q * v).sum(-1)
+    den = uu * vv - uv * uv
+    a = (qu * vv - qv * uv) / den
+    b = (qv * uu - qu * uv) / den
+    inside = (a >= -1e-4) & (b >= -1e-4) & (a + b <= 1 + 1e-4)
+    return bool((on_plane & inside).any())
+
+
+def check_ray_log(debug_rays, scene, stats, fov_x, w, h, pixels,
+                  depth_layer, bounces_layer):
+    """The device ray log of one lane against the full frame's first sample
+    (stats.first) at each (x, row) of `pixels`, traced through "pallas":
+    its first t bit-equal to the depth AOV (0 and inf on a primary miss),
+    its segment count the bounces AOV. Returns per pixel (x, row, first t,
+    segments, whether the path ends in a miss, whether it reaches an
+    emitter)."""
+    import numpy as np
+
+    depth = stats.first[depth_layer, ..., 0].cpu().numpy()
+    bounces = stats.first[bounces_layer, ..., 0].cpu().numpy()
+    out = []
+    for x, row in pixels:
+        segs = debug_rays.trace_pixel_paths_device(
+            scene, w, h, fov_x, DEPTH, x, h - 1 - row, samples=1, seed=0,
+            intersector="pallas")
+        first = segs[0]
+        want_t = depth[row, x]
+        ok_t = ((np.isinf(first.t) and want_t == 0.0)
+                or np.float32(first.t) == want_t)
+        if not ok_t or len(segs) != int(bounces[row, x]):
+            raise AssertionError(
+                f"ray log at pixel ({x}, {row}): first t {first.t!r}, "
+                f"{len(segs)} segments; the frame's depth AOV {want_t!r}, "
+                f"bounces {bounces[row, x]!r}")
+        out.append((x, row, float(first.t), len(segs),
+                    bool(np.isinf(segs[-1].t)),
+                    any(light_hit(scene, sg.end) for sg in segs
+                        if np.isfinite(sg.t))))
+    return out
+
+
+def debug_path(rt, trav, pi, scene, cfg, fov_x, dev, counters, reps, card,
+               demo, demo_gltf, scene_dir, rehearsal, profile):
+    """The debug surface on the demo (phase 10 of the module docstring)."""
+    import contextlib
+    import io
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from raytracer_odin_tpu_torch import cli
+    from raytracer_odin_tpu_torch import config as C
+    from raytracer_odin_tpu_torch.io import gltf, images, png
+    from raytracer_odin_tpu_torch.models import assets, build
+    from raytracer_odin_tpu_torch.ops import probes
+    from raytracer_odin_tpu_torch.render import debug_rays, preview
+    from raytracer_odin_tpu_torch.utils import prng
+
+    w, h = cfg.width, cfg.height
+    dcfg = cfg.replace(samples=DEBUG_STEPS, debug_features=True)
+    names = probes.layer_names()
+    if names.index("depth") != C.LAYER_DEPTH or len(names) != 10:
+        raise AssertionError(f"layers {names}")
+
+    # K1 and K2 on the uncompacted route's full-width sorted bounce-1 batch
+    ub = uncompacted_batch(rt, trav, pi, scene, dcfg, fov_x, dev)
+    k1 = measure_k1(pi, ub["aabb8"], ub["k1_rays"], ub["n_super"], dev, reps)
+    k2 = measure_sweep(pi, trav, scene, ub["words"], ub["rays"], ub["g"],
+                       ub["n_super"], dev, reps)
+    for m in (k1, k2):
+        m.update(lanes=ub["lanes"], alive=ub["alive"])
+    print(f"  [debug] K1 bounce 1 (uncompacted, every lane): "
+          f"{json.dumps(k1)}", flush=True)
+    print(f"  [debug] K2 bounce 1 (uncompacted, sorted, dead lanes last): "
+          f"{json.dumps(k2)}", flush=True)
+    del ub
+
+    # the render: launches from zero, no calibration, ten layers
+    r = render_path(rt, scene, dcfg, fov_x, dev, counters, DEBUG_STEPS)
+    print_render(r, DEBUG_STEPS, card)
+    res = r["res"]
+    if res.overflow != 0 or res.lane_schedule is not None:
+        raise AssertionError("debug: compacted, or overflow")
+    check_launches("debug", r, {"K1": DEPTH, "K2": DEPTH}, {}, rehearsal)
+    stats = res.stats
+    if tuple(stats.count.shape) != (10, h, w):
+        raise AssertionError(f"debug: stats {tuple(stats.count.shape)}")
+    check_frame(res, h, w)
+
+    # beauty bit-equal to a beauty-only uncompacted render, same seed
+    plain = rt.render_scene(scene, cfg.replace(samples=DEBUG_STEPS,
+                                               compact="off"),
+                            fov_x, device=dev).stats
+    for f in ("first", "last", "total", "total_sq", "count"):
+        if not torch.equal(getattr(stats, f)[0], getattr(plain, f)[0]):
+            raise AssertionError(f"debug: beauty {f} differs from the "
+                                 "beauty-only render")
+    del plain
+
+    # AOV ranges
+    first, last = stats.first, stats.last
+    for layer in (C.LAYER_MISS, C.LAYER_ANOMALY):
+        v = torch.cat([first[layer], last[layer]])
+        if not bool(((v == 0) | (v == 1)).all()):
+            raise AssertionError(f"debug: {names[layer]} outside {{0, 1}}")
+    for v in (first[C.LAYER_BOUNCES], last[C.LAYER_BOUNCES]):
+        if not bool(((v >= 1) & (v <= DEPTH)).all()):
+            raise AssertionError("debug: bounces outside [1, depth]")
+    hit0 = first[C.LAYER_MISS, ..., 0] == 0
+    if not bool((first[C.LAYER_DEPTH, ..., 0][hit0] > 0).all()):
+        raise AssertionError("debug: depth 0 on a primary hit")
+    aov = {names[i]: [float(first[i].min()), float(first[i].max())]
+           for i in range(1, 10)}
+    print(f"  [debug] AOV ranges at sample 0: {json.dumps(aov)}", flush=True)
+
+    # the device ray log: a grid, the floor, an escape, an emitter
+    t = time.perf_counter()
+    grid = [(int(w * (i + 0.5) / 8), int(h * (j + 0.5) / 6))
+            for j in range(6) for i in range(8)]
+    floor = (w // 2, h - 1 - h // 20)
+    logs = check_ray_log(debug_rays, scene, stats, fov_x, w, h,
+                         grid + [floor], C.LAYER_DEPTH, C.LAYER_BOUNCES)
+    escapes = [lg for lg in logs if lg[4]]
+    emitters = [lg for lg in logs if lg[5]]
+    if not escapes or not emitters:
+        raise AssertionError(f"debug: of {len(logs)} pixels {len(escapes)} "
+                             f"paths escape, {len(emitters)} reach an "
+                             "emitter")
+    if bool(first[C.LAYER_MISS].any()):
+        raise AssertionError("the demo's camera sees sky")
+    # a primary miss: the cube at the same frame
+    chost = gltf.read_gltf(assets.generate("cube", scene_dir)["gltf"])
+    cube = build.finish_scene(chost, device=dev)
+    cfov = chost.cam.fov_x * (WIDTH / HEIGHT)
+    cres = rt.render_scene(cube, dcfg.replace(samples=1), cfov, device=dev)
+    miss = torch.nonzero(cres.stats.first[C.LAYER_MISS, ..., 0] == 1)
+    hits = torch.nonzero(cres.stats.first[C.LAYER_MISS, ..., 0] == 0)
+    if miss.shape[0] == 0 or hits.shape[0] == 0:
+        raise AssertionError("debug: the cube frame has no primary miss")
+    cube_px = [(int(miss[0, 1]), int(miss[0, 0])),
+               (int(hits[hits.shape[0] // 2, 1]),
+                int(hits[hits.shape[0] // 2, 0]))]
+    cube_logs = check_ray_log(debug_rays, cube, cres.stats, cfov, w, h,
+                              cube_px, C.LAYER_DEPTH, C.LAYER_BOUNCES)
+    if not np.isinf(cube_logs[0][2]):
+        raise AssertionError("debug: the cube's miss pixel hit")
+    del cres, cube
+    ray_log_s = time.perf_counter() - t
+    print(f"  [debug] ray log == frame on {len(logs)} demo pixels "
+          f"({len(escapes)} escape, {len(emitters)} reach an emitter; the "
+          f"floor {logs[-1]}) and {len(cube_logs)} cube pixels (a primary "
+          f"miss {cube_logs[0]}); {ray_log_s:.3f} s", flush=True)
+
+    # the preview: overlays, then HTTP on 127.0.0.1
+    t = time.perf_counter()
+    pv = preview.Preview(scene.cam_pos.cpu().numpy(),
+                         scene.cam_basis.cpu().numpy(), fov_x, (w, h),
+                         flat_bvh=scene.bvh, scene=scene, ray_depth=DEPTH,
+                         seed=dcfg.seed, intersector="pallas")
+    pv.update(stats, DEBUG_STEPS)
+    px = emitters[0][:2]
+    base = pv.frame(C.LAYER_NORMAL, "mean")
+    over = pv.frame(C.LAYER_NORMAL, "mean", lines_level=2, pixel=px)
+    if base.shape != (h, w, 3) or np.array_equal(base, over):
+        raise AssertionError("debug: the preview's overlays drew nothing")
+    port = pv.serve(0)
+    try:
+        url = f"http://127.0.0.1:{port}"
+        page = urllib.request.urlopen(f"{url}/", timeout=60).read()
+        if b"9: miss" not in page:
+            raise AssertionError("debug: the preview's page lists no layers")
+        data = urllib.request.urlopen(
+            f"{url}/frame.png?layer=2&mode=first&lines=1&pixel="
+            f"{px[0]},{px[1]}", timeout=120).read()
+    finally:
+        pv.stop()
+    img = png.decode(data)
+    if img.shape != (h, w, 3):
+        raise AssertionError(f"debug: the preview's PNG is {img.shape}")
+    preview_s = time.perf_counter() - t
+
+    # --debug-nans: one more step with the check, bit-equal to one without
+    key = prng.key_from_seed(dcfg.seed)
+    steps = {}
+    for name, on in (("plain", False), ("checked", True)):
+        st = accum_copy(stats)
+        step = rt.make_render_step(dcfg, fov_x, device=dev, debug_nans=on)
+        sync(dev)
+        t = time.perf_counter()
+        step(scene, st, key, DEBUG_STEPS)
+        sync(dev)
+        steps[name] = (st, (time.perf_counter() - t) * 1e3)
+    for f in ("first", "last", "total", "total_sq", "count"):
+        if not torch.equal(getattr(steps["plain"][0], f),
+                           getattr(steps["checked"][0], f)):
+            raise AssertionError(f"debug: --debug-nans changed {f}")
+    nan_ms = {k: v[1] for k, v in steps.items()}
+    del steps
+    if profile:
+        ps = time.perf_counter()
+        profile_step(rt, accum_copy(stats), scene, dcfg, fov_x, None, dev,
+                     "debug")
+        print(f"  [debug] profile {time.perf_counter() - ps:.3f} s",
+              flush=True)
+
+    # the CLI in process
+    DEBUG_PNG.parent.mkdir(parents=True, exist_ok=True)
+    argv = [str(demo_gltf), str(DEBUG_PNG), "--debug", "--layer", "depth",
+            "--mode", "first", "--preview-file", str(DEBUG_SNAP), "--width",
+            str(w), "--height", str(h), "--ray-depth", str(DEPTH),
+            "--num-samples", str(DEBUG_STEPS)]
+    if rehearsal:
+        argv += ["--intersector", "pallas"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv, device=dev)
+    sync(dev)
+    text = out.getvalue()
+    print("  [debug] cli: " + " | ".join(
+        ln for ln in text.splitlines() if "Throughput" in ln or "Trial" in ln),
+        flush=True)
+    if rc != 0:
+        raise AssertionError(f"debug: cli exit code {rc}")
+    for path in (DEBUG_PNG, DEBUG_SNAP):
+        if images.load_image(path).data.shape != (h, w, 3):
+            raise AssertionError(f"debug: {path.name} does not decode")
+
+    step_ms = sum(r["step_s"]) / len(r["step_s"]) * 1e3
+    demo_step_ms = sum(demo["step_s"]) / len(demo["step_s"]) * 1e3
+    print(f"  [debug] {r['mrays']:.3f} Mrays/s, step {step_ms:.3f} ms, peak "
+          f"{r['peak_gib']:.3f} GiB; compacted demo {demo['mrays']:.3f} "
+          f"Mrays/s, step {demo_step_ms:.3f} ms; --debug-nans step "
+          f"{nan_ms['checked']:.3f} ms against {nan_ms['plain']:.3f} "
+          f"without; preview {preview_s:.3f} s ({card})", flush=True)
+    return {"k1": k1, "k2": k2, "mrays": r["mrays"], "step_ms": step_ms,
+            "demo_step_ms": demo_step_ms, "peak_gib": r["peak_gib"],
+            "launches": r["launches"], "per_step": r["per_step"],
+            "calibration": r["calibration"], "nan_check_ms": nan_ms,
+            "ray_log_pixels": len(logs) + len(cube_logs),
+            "preview_s": preview_s}
 
 
 def accum_copy(stats):

@@ -3,10 +3,12 @@
 Mirrors the reference CLI (main.odin:174-253): positional input scene and
 output image, plus --debug --times --continious --threads --width --height
 --ray-depth --num-samples --env-map (including the reference's spelling of
-"continious"), and the JAX package's additions: --checkpoint/--resume,
---layer/--mode output selection, --oracle (render with the numpy reference
-implementation), --seed, --spp-per-step, --intersector, --compact,
---converge-se, --profile-dir. The flags, their defaults and the config
+"continious"), and the JAX package's additions: --preview-port/
+--preview-file/--preview-every (the headless replacements of the SDL2
+window, with --debug), --checkpoint/--resume, --layer/--mode output
+selection, --oracle (render with the numpy reference implementation),
+--seed, --spp-per-step, --intersector, --compact, --converge-se,
+--debug-nans, --profile-dir. The flags, their defaults and the config
 resolution are the JAX CLI's. Flags whose paths the port does not have yet
 raise NotImplementedError naming the ROADMAP.md item that brings them.
 
@@ -24,21 +26,22 @@ import time
 import numpy as np
 
 # ROADMAP.md queue A items that bring the flags not ported yet.
-_DEBUG_ITEM = "ROADMAP.md queue A item 1 (the debug surface)"
-_MESH_ITEM = "ROADMAP.md queue A item 2 (multi-GPU sharding)"
-_SCHED_ITEM = "ROADMAP.md queue A item 3 (the other schedulers)"
+_MESH_ITEM = "ROADMAP.md queue A item 1 (multi-GPU sharding)"
+_SCHED_ITEM = "ROADMAP.md queue A item 2 (the other schedulers)"
 
 
 def _layer_arg(v: str) -> int:
-    """--layer takes an index or a layer name; the port has the beauty
-    layer only (probe layers come with the debug surface)."""
+    """--layer accepts an index or a registered probe name (ops/probes)."""
     try:
         return int(v)
     except ValueError:
-        if v == "beauty":
-            return 0
+        from raytracer_odin_tpu_torch.ops import probes
+
+        names = probes.layer_names()
+        if v in names:
+            return names.index(v)
         raise argparse.ArgumentTypeError(
-            f"unknown layer {v!r}; known: beauty")
+            f"unknown layer {v!r}; known: {', '.join(names)}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,7 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("output_file", nargs="?", default="",
                    help="Output image (.png/.ppm)")
     p.add_argument("--debug", action="store_true",
-                   help="Debug preview and AOV layers (not ported yet)")
+                   help="Enable debug preview (HTTP + snapshots) and AOV "
+                        "layers")
     p.add_argument("--times", type=int, default=0,
                    help="Number of times to render the scene (benchmark "
                         "trials)")
@@ -90,15 +94,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "'off' keeps full-width lanes; 'refill' is not "
                         "ported yet")
     p.add_argument("--layer", type=_layer_arg, default=0,
-                   help="Output layer: 0 or beauty (AOV layers are not "
-                        "ported yet)")
+                   help="Output layer: index or probe name (beauty, "
+                        "normal, depth, ... - any name registered via "
+                        "ops/probes.register); AOV layers need --debug")
     p.add_argument("--mode", default="mean",
                    choices=["mean", "variance", "first", "last", "count",
                             "weight", "hash", "naninf"])
     p.add_argument("--preview-port", type=int, default=0,
-                   help="Live HTTP preview (not ported yet)")
+                   help="Serve a live HTTP preview on this port of "
+                        "127.0.0.1 (with --debug)")
     p.add_argument("--preview-file", default="",
-                   help="Periodic snapshot file (not ported yet)")
+                   help="Write periodic snapshot to this file (with --debug)")
     p.add_argument("--preview-every", type=float, default=2.0,
                    help="Snapshot period in seconds")
     p.add_argument("--converge-se", type=float, default=0.0,
@@ -114,7 +120,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Render with the independent numpy reference "
                         "implementation")
     p.add_argument("--debug-nans", action="store_true",
-                   help="NaN-origin tracing (not ported yet)")
+                   help="Check every sample's values for NaN; on one, "
+                        "re-trace the sample checking live lanes after each "
+                        "bounce's cast and shade, and stop with "
+                        "FloatingPointError naming the bounce, the stage "
+                        "and pixels")
     p.add_argument("--profile-dir", default="",
                    help="Write a torch.profiler Chrome trace into this dir")
     p.add_argument("--quiet", action="store_true")
@@ -124,11 +134,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     """Raise for every flag whose path the port does not have yet."""
     unported = [
-        (args.debug, "--debug", _DEBUG_ITEM),
-        (args.layer != 0, "--layer other than 0", _DEBUG_ITEM),
-        (args.preview_port or args.preview_file, "--preview-port/--preview-file",
-         _DEBUG_ITEM),
-        (args.debug_nans, "--debug-nans", _DEBUG_ITEM),
         (args.devices > 1 or args.spp_devices > 1,
          "--devices/--spp-devices above 1", _MESH_ITEM),
         (args.pool, "--pool", _SCHED_ITEM),
@@ -185,8 +190,14 @@ def main(argv=None, device="cuda") -> int:
     cfg = RenderConfig(
         width=width, height=height, ray_depth=depth, samples=samples,
         continuous=args.continious, samples_per_step=spp_step,
-        seed=args.seed, intersector=args.intersector, compact=args.compact,
+        seed=args.seed, debug_features=args.debug and not args.pool,
+        intersector=args.intersector, compact=args.compact,
     )
+    if not 0 <= args.layer < cfg.num_layers:
+        # The JAX CLI's indexing clamps an index past the last layer.
+        raise ValueError(
+            f"--layer {args.layer}: the render has {cfg.num_layers} "
+            "layer(s); the AOV layers need --debug")
 
     scene = build_mod.finish_scene(host, env_map=env_tex,
                                    verbose=not args.quiet, device=device)
@@ -206,7 +217,8 @@ def main(argv=None, device="cuda") -> int:
             log(f"Saved {args.output_file}")
         return 0
 
-    from raytracer_odin_tpu_torch.render import accum, checkpoint, runtime
+    from raytracer_odin_tpu_torch.render import (accum, checkpoint, preview,
+                                                 runtime)
     from raytracer_odin_tpu_torch.utils import profiling
 
     initial_stats = None
@@ -217,6 +229,23 @@ def main(argv=None, device="cuda") -> int:
         log(f"Resumed {initial_samples} samples from {args.checkpoint}")
 
     hooks = []
+    pv = None
+    if args.debug:
+        pv = preview.Preview(
+            scene.cam_pos.cpu().numpy(), scene.cam_basis.cpu().numpy(),
+            fov_x, (width, height), flat_bvh=scene.bvh, scene=scene,
+            ray_depth=depth, seed=args.seed, intersector=args.intersector,
+        )
+        if args.preview_port:
+            port = pv.serve(args.preview_port)
+            log(f"Preview at http://127.0.0.1:{port}/")
+        if args.preview_file:
+            hooks.append(preview.SnapshotWriter(
+                pv, args.preview_file, args.preview_every,
+                layer=args.layer, mode=args.mode,
+            ))
+        else:
+            hooks.append(pv.update)
     ckpt_state = {"last": time.time()}
     if args.checkpoint:
         def ckpt_hook(stats, samples_done):
@@ -242,9 +271,12 @@ def main(argv=None, device="cuda") -> int:
                 interrupt=interrupt, on_step=on_step if hooks else None,
                 initial_stats=initial_stats, initial_samples=initial_samples,
                 verbose=not args.quiet, converge_se=args.converge_se,
+                debug_nans=args.debug_nans,
             )
     finally:
         interrupt.uninstall()
+        if pv is not None:
+            pv.stop()
     res.stats = accum.crop(res.stats, height, width)
     if not args.quiet and res.trial_seconds:
         # Measured path segments (dead lanes not credited), not

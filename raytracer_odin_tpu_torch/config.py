@@ -2,9 +2,10 @@
 
 Mirrors the reference's ``Rendering_Config`` (main.odin:27-32) plus the
 execution knobs the port honours, under the JAX package's field names and
-defaults. Fields of the JAX configuration that select paths the port does
-not have yet (debug AOV layers, the pool and refill schedulers, the light
-chunk, multi-device) come with those paths (ROADMAP.md).
+defaults, but for `debug_features` (see RenderConfig). Fields of the JAX
+configuration that select paths the port does not have yet (the pool and
+refill schedulers, the light chunk, multi-device) come with those paths
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,6 +27,13 @@ class RenderConfig:
       samples_per_step: samples per pixel computed in one render step, the
         unit of accumulation between host checks (interrupt, checkpoint).
       seed: the render's seed (prng.key_from_seed).
+      debug_features: accumulate the debug AOV layers (every registered
+        probe of ops/probes.py after the beauty layer; main.odin:17, :48).
+        They need full-width lanes every bounce, so they turn compaction
+        off. Default False, where the JAX package's is True: the port's
+        callers render beauty only, compacted, and a True default would
+        silently turn compaction off for all of them (ROADMAP.md queue C).
+        The CLI sets it from --debug, as the JAX CLI does.
       intersector: "pallas" (the exact-culled K1 + K2/K4 path),
         "pallas_brute" (K3, every cluster, uncompacted), "brute" (the
         chunked dense sweep), "bvh" (the stackless BVH walk) or "auto"
@@ -50,6 +58,7 @@ class RenderConfig:
     continuous: bool = False
     samples_per_step: int = 4
     seed: int = 0
+    debug_features: bool = False
     intersector: str = "auto"
     brute_chunk: int = 512
     brute_max_tris: int = 512
@@ -57,5 +66,30 @@ class RenderConfig:
     compact_margin: float = 1.04
     compact_schedule: Optional[tuple] = None
 
+    @property
+    def num_layers(self) -> int:
+        """Stats layers: 1 (beauty), or with debug_features beauty plus one
+        per registered probe (10 with the builtin set; NUM_LAYERS,
+        main.odin:48)."""
+        if not self.debug_features:
+            return 1
+        from raytracer_odin_tpu_torch.ops import probes
+
+        return probes.num_layers()
+
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
+
+
+# AOV layer indices with debug_features: layer 0 is the beauty render, the
+# others are the builtin probes in registry order (ops/probes.py).
+LAYER_BEAUTY = 0
+LAYER_NORMAL = 1       # first-hit shading normal, mapped to [0,1]
+LAYER_DEPTH = 2        # first-hit distance t
+LAYER_ALBEDO = 3       # first-hit material color
+LAYER_EMISSION = 4     # first-hit emission
+LAYER_UV = 5           # first-hit texcoords
+LAYER_BOUNCES = 6      # number of path vertices before termination
+LAYER_ANOMALY = 7      # firefly indicator: ||exitance||_1 > 1e3 (raytracer.odin:502)
+LAYER_PDF = 8          # first-bounce sampling pdf
+LAYER_MISS = 9         # primary-ray miss mask

@@ -14,7 +14,10 @@ Two schedules, with identical physics (`_shade_vertex`) and sample sets
   * `_trace_compacted` — dead-lane compaction: the state is sorted each
     bounce by (dead|octant, mask words), sliced to a static lane budget and
     the dead tail retired; one scatter by lane id restores image order.
-AOVs (want_aux), ray logs and the columnar state form are not ported yet.
+The debug surface rides the full-width trace: registered probes
+(want_aux, ops/probes.py), the per-lane ray log (log_paths) and the live-
+lane NaN check (check_nans) each turn compaction off. The columnar state
+form is not ported.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from typing import NamedTuple
 import torch
 
 from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
-from raytracer_odin_tpu_torch.ops import shading, texture, traverse
+from raytracer_odin_tpu_torch.ops import probes, shading, texture, traverse
 from raytracer_odin_tpu_torch.ops.geometry import BIG, RAY_EPS
 from raytracer_odin_tpu_torch.utils import prng
 from raytracer_odin_tpu_torch.utils.math3d import cross, dot, norm_l1, normalize
@@ -37,6 +40,16 @@ class TraceOptions(NamedTuple):
     # up to which "auto" means "brute" on the CPU (traverse.cast_rays).
     brute_chunk: int = 512
     brute_max_tris: int = 512
+    # Accumulate every registered debug probe (ops/probes.py) into aux.
+    want_aux: bool = False
+    # Record the per-bounce ray log (aux["ray_log"]) of every lane: re-traced
+    # with its true stream id, one pixel's log is the full render's path
+    # (render/debug_rays.py). Use on small batches only.
+    log_paths: bool = False
+    # Raise FloatingPointError at the first NaN on a live lane after a
+    # bounce's cast or shade (--debug-nans' second pass,
+    # runtime.make_render_step); full-width trace only.
+    check_nans: bool = False
     # Dead-lane compaction: static lane budgets for bounces 1..depth-1
     # (runtime.auto_lane_schedule). Lanes beyond a budget that are still
     # alive are counted in aux["overflow"]: the render is then invalid and
@@ -192,8 +205,10 @@ def _shade_vertex(scene, o, d, t, tri_idx, alive, uniforms, has_lights,
     """One path vertex after the cast: env contribution on a miss, emission
     on a hit, mixture sample + continuation rule, throughput update.
 
-    Returns (new_o, new_d, throughput, radiance, alive); new_o/new_d are
-    garbage on dead lanes (masked by `alive`)."""
+    Returns (new_o, new_d, throughput, radiance, alive, ev, hit, missed);
+    new_o/new_d are garbage on dead lanes (masked by `alive`). ev, hit and
+    missed are what the shade computed anyway: the probes and the ray log
+    read them, the compacted trace drops them."""
     hit = (tri_idx >= 0) & alive
     missed = (~(tri_idx >= 0)) & alive
 
@@ -210,37 +225,78 @@ def _shade_vertex(scene, o, d, t, tri_idx, alive, uniforms, has_lights,
     cont = ev["cont"] & hit
     ratio = ev["value"] / ev["pdf"][..., None]
     throughput = torch.where(cont[..., None], throughput * ratio, throughput)
-    return ev["material"]["pos"], ev["new_d"], throughput, radiance, cont
+    return (ev["material"]["pos"], ev["new_d"], throughput, radiance, cont,
+            ev, hit, missed)
 
 
-def trace(scene, o, d, key, sample, opts: TraceOptions):
+def check_live_nans(sample, bounce: int, stage: str, stream_ids, checks):
+    """Raise FloatingPointError if a live lane holds a NaN: `checks` is a
+    list of (name, values [..., k] or [...], live mask [...]). Dead lanes
+    carry garbage by design and are not read. The message names the
+    sample, the bounce, the stage and the first pixel (stream) ids."""
+    for name, v, live in checks:
+        nan = torch.isnan(v)
+        if nan.dim() > live.dim():
+            nan = nan.any(dim=-1)
+        bad = nan & live
+        if bool(bad.any()):
+            ids = stream_ids[bad].reshape(-1)[:8].tolist()
+            raise FloatingPointError(
+                f"NaN in {name} of {int(bad.sum())} live lanes at sample "
+                f"{int(sample)}, bounce {bounce}, after the {stage}; first "
+                f"pixel ids {ids}")
+
+
+def trace(scene, o, d, key, sample, opts: TraceOptions, stream_ids=None):
     """Trace radiance for a batch of rays.
 
     o, d: [..., 3] origins/directions (d normalized). key: the seed's word
-    pair (prng.key_from_seed); sample: this batch's sample index. The
-    stream id of a lane is its flat position in the batch (the pixel index
-    for a full frame), and its draws are prng.uniforms(key, sample, bounce,
-    stream_id) - the JAX package's addressing, so both draw the same bits.
+    pair (prng.key_from_seed); sample: this batch's sample index.
+    stream_ids: [...] int32 per-lane stream ids (the pixel index); by
+    default a lane's flat position in the batch, which is the pixel index
+    for a full frame. A lane's draws are prng.uniforms(key, sample,
+    bounce, stream_id) - the JAX package's addressing, so both draw the
+    same bits, and a lane traced alone with its pixel's stream id draws
+    what it draws in the full frame.
 
     Returns (radiance [..., 3], aux) with aux "rays_cast" (live path
     segments cast, int64 scalar tensor), "overflow" and "alive_counts"
-    ([depth] live lanes entering each bounce)."""
+    ([depth] live lanes entering each bounce). With opts.want_aux, aux
+    also holds every registered probe's accumulator by name
+    (ops/probes.py); with opts.log_paths, "ray_log": per bounce and lane
+    o, d, t (inf unless a hit), alive, hit, value_over_pdf and
+    throughput_l1, each [depth, ...] (the Cast_Info log, main.odin:42-47).
+    With opts.check_nans, a NaN on a live lane after a bounce's cast or
+    shade raises FloatingPointError (check_live_nans)."""
     batch_shape = tuple(o.shape[:-1])
     dev = o.device
     if opts.lane_schedule is not None and compaction_applies(opts, dev):
+        if stream_ids is not None:
+            raise ValueError("the compacted trace takes each lane's flat "
+                             "position as its stream id")
         return _trace_compacted(scene, o, d, key, sample, opts)
 
-    n_lanes = 1
-    for s in batch_shape:
-        n_lanes *= s
-    stream_ids = torch.arange(n_lanes, dtype=torch.int32,
-                              device=dev).reshape(batch_shape)
+    if stream_ids is None:
+        n_lanes = 1
+        for s in batch_shape:
+            n_lanes *= s
+        stream_ids = torch.arange(n_lanes, dtype=torch.int32,
+                                  device=dev).reshape(batch_shape)
     has_lights = scene.light_p.shape[0] > 0
     throughput = torch.ones(batch_shape + (3,), dtype=torch.float32,
                             device=dev)
     radiance = torch.zeros(batch_shape + (3,), dtype=torch.float32,
                            device=dev)
     alive = torch.ones(batch_shape, dtype=torch.bool, device=dev)
+    aux = {}
+    folded = []
+    if opts.want_aux:
+        folded = [p for p in probes.active() if p.reduce != "final"]
+        aux = {p.name: p.init(batch_shape, dev) for p in folded}
+        # lanes that have had no live vertex yet (the first / first_hit
+        # reductions)
+        virgin = torch.ones(batch_shape, dtype=torch.bool, device=dev)
+    ylogs = []
     alive_counts = []
     for b in range(opts.depth):
         # One path segment per live lane per cast (dead lanes ride the
@@ -252,28 +308,66 @@ def trace(scene, o, d, key, sample, opts: TraceOptions):
             brute_chunk=opts.brute_chunk,
             brute_max_tris=opts.brute_max_tris, sort=b > 0, alive=alive,
         )
+        if opts.check_nans:
+            check_live_nans(sample, b, "cast", stream_ids,
+                            [("t", t, alive)])
         uniforms = prng.uniforms(key, sample, b, stream_ids, 6)
-        o, d, throughput, radiance, alive = _shade_vertex(
-            scene, o, d, t, tri_idx, alive, uniforms, has_lights,
-            throughput, radiance,
-        )
+        new_o, new_d, throughput, radiance, cont, ev, hit, missed = (
+            _shade_vertex(scene, o, d, t, tri_idx, alive, uniforms,
+                          has_lights, throughput, radiance))
+        if opts.check_nans:
+            check_live_nans(sample, b, "shade", stream_ids, [
+                ("radiance", radiance, alive),
+                ("throughput", throughput, alive),
+                ("the next origin", new_o, cont),
+                ("the next direction", new_d, cont)])
+        if opts.log_paths:
+            ylogs.append({
+                "o": o, "d": d,
+                "t": torch.where(hit, t, torch.inf),
+                "alive": alive, "hit": hit,
+                "value_over_pdf": norm_l1(ev["value"]) / ev["pdf"],
+                "throughput_l1": norm_l1(
+                    torch.where(cont[..., None], throughput, 0.0)),
+            })
+        if folded:
+            ctx = probes.ProbeCtx(
+                bounce=b, o=o, d=d, t=t, hit=hit, missed=missed,
+                alive=alive, material=ev["material"], normal=ev["normal"],
+                pdf=ev["pdf"], value=ev["value"], new_d=new_d,
+                throughput=throughput, radiance=radiance,
+            )
+            for p in folded:
+                aux[p.name] = p.fold(aux[p.name], ctx, virgin)
+            virgin = virgin & ~alive
+        o, d, alive = new_o, new_d, cont
     counts = (torch.stack(alive_counts) if alive_counts
               else torch.zeros(0, dtype=torch.int64, device=dev))
-    aux = {
+    aux.update({
         "rays_cast": counts.sum(),
         "overflow": torch.zeros((), dtype=torch.int64, device=dev),
         "alive_counts": counts,
-    }
+    })
+    if opts.want_aux:
+        fctx = probes.ProbeCtx(radiance=radiance)
+        for p in probes.active():
+            if p.reduce == "final":
+                aux[p.name] = p.value_of(fctx, dev)
+    if opts.log_paths and ylogs:
+        aux["ray_log"] = {k: torch.stack([y[k] for y in ylogs])
+                          for k in ylogs[0]}
     return radiance, aux
 
 
 def compaction_applies(opts: TraceOptions, device) -> bool:
-    """Dead-lane compaction needs depth > 1 and the exact-culled sorted
-    cast: "pallas", or "auto" on the card, where it resolves to "pallas".
-    "auto" on the CPU ("brute" or "bvh"), "pallas_brute", "brute" and
-    "bvh" run uncompacted, as in the JAX package
-    (integrator._compaction_applies)."""
-    if opts.depth <= 1:
+    """Dead-lane compaction needs depth > 1, no per-lane instrumentation
+    (AOVs and ray logs need full-width lanes every bounce; the NaN check
+    reads every live lane) and the exact-culled sorted cast: "pallas", or
+    "auto" on the card, where it resolves to "pallas". "auto" on the CPU
+    ("brute" or "bvh"), "pallas_brute", "brute" and "bvh" run uncompacted,
+    as in the JAX package (integrator._compaction_applies)."""
+    if (opts.depth <= 1 or opts.want_aux or opts.log_paths
+            or opts.check_nans):
         return False
     if opts.intersector == "pallas":
         return True
@@ -308,7 +402,7 @@ def first_bounce(scene, o, d, key, sample):
     o, d, throughput, radiance, alive = _shade_vertex(
         scene, o, d, t, tri_idx, alive, uniforms, has_lights,
         throughput, radiance,
-    )
+    )[:5]
     state = torch.zeros((n0p, 12), dtype=torch.float32, device=dev)
     state[:n0, 0:3] = o.reshape(n0, 3)
     state[:n0, 3:6] = d.reshape(n0, 3)
@@ -421,7 +515,7 @@ def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions):
         o2, d2, thr, rad, alive = _shade_vertex(
             scene, state[:, 0:3], state[:, 3:6], t, tri_idx, alive, uniforms,
             has_lights, state[:, 6:9], state[:, 9:12],
-        )
+        )[:5]
         state = torch.cat([o2, d2, thr, rad], dim=1)
 
     # ---- merge: each lane id appears exactly once ----

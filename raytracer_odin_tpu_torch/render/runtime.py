@@ -8,12 +8,15 @@ target spp, or in continuous mode until interrupted or converged, checking
 the interrupt flag only between steps (raytracer.odin:554). With
 compact="auto" one uncompacted 1-spp sample first calibrates the
 per-bounce lane budgets of the compacted wavefront; if a budget undershoots
-(overflow), the render is redone uncompacted.
+(overflow), the render is redone uncompacted. With cfg.debug_features
+every sample also folds the registered probes' AOV layers, uncompacted and
+without calibration; with debug_nans every sample's values are checked
+for NaN before they are folded (make_render_step).
 
 Entry points take a `device` (default "cuda") and refuse a scene that
 lives elsewhere: nothing moves work to the CPU behind the caller's back.
-Previews, AOV layers, row sharding, the pool and refill schedulers and the
-multi-device path are not ported yet.
+The pool and refill schedulers and the multi-device path are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from raytracer_odin_tpu_torch.config import RenderConfig
 from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
+from raytracer_odin_tpu_torch.ops import probes
 from raytracer_odin_tpu_torch.ops.integrator import (
     TraceOptions,
     compaction_applies,
@@ -76,20 +80,26 @@ def _require_device(scene, device) -> torch.device:
 
 
 def generate_rays(cam_pos, cam_basis, fov_x: float, width: int, height: int,
-                  jitter):
-    """Camera rays with per-pixel jitter ([H, W, 2] uniforms). Image row r
-    is reference pixel py = height - 1 - r (the flip on store,
-    main.odin:95, baked into ray generation). The basis rotation is written
-    out in f32 multiplies and adds, so no matmul precision mode touches it.
+                  jitter, row_offset: int = 0, n_rows: Optional[int] = None):
+    """Camera rays with per-pixel jitter for rows [row_offset, row_offset +
+    n_rows) of a height-`height` image (jitter: [n_rows, W, 2] uniforms, or
+    any shape that broadcasts to it). Image row r is reference pixel
+    py = height - 1 - r (the flip on store, main.odin:95, baked into ray
+    generation). The basis rotation is written out in f32 multiplies and
+    adds, so no matmul precision mode touches it; a pixel's ray is the same
+    bits whatever rows are generated with it.
 
-    Returns (o [H, W, 3], d [H, W, 3])."""
+    Returns (o [n_rows, W, 3], d [n_rows, W, 3])."""
+    if n_rows is None:
+        n_rows = height
     dev = jitter.device
     aspect = width / height
     tan_fx = torch.tan(torch.tensor(fov_x / 2.0, dtype=torch.float32,
                                     device=dev))
     tan_fy = tan_fx / aspect
 
-    r = torch.arange(height, dtype=torch.float32, device=dev)[:, None]
+    r = row_offset + torch.arange(n_rows, dtype=torch.float32,
+                                  device=dev)[:, None]
     px = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
     py = (height - 1.0) - r
 
@@ -139,18 +149,59 @@ def _trace_options(cfg: RenderConfig, lane_schedule=None) -> TraceOptions:
         intersector=cfg.intersector,
         brute_chunk=cfg.brute_chunk,
         brute_max_tris=cfg.brute_max_tris,
+        want_aux=cfg.debug_features,
         lane_schedule=tuple(lane_schedule) if lane_schedule else None,
     )
 
 
+def sample_layer_values(radiance, aux, debug: bool):
+    """One sample's per-layer values [L, ..., 3]: L = 1 (beauty only) or
+    1 + len(probes) (beauty first, then every registered probe in registry
+    order; the builtin set keeps the config.LAYER_* indices)."""
+    if not debug:
+        return radiance[None]
+    vals = [radiance]
+    for p in probes.active():
+        vals.append(p.display_value(aux[p.name]))
+    return torch.stack(vals, dim=0)
+
+
+def _raise_on_nans(scene, key, sample, vals, fov_x, width, height, opts,
+                   debug: bool):
+    """--debug-nans (the port's counterpart of jax_debug_nans, which checks
+    what a step outputs): if the values a sample folds in hold a NaN,
+    re-run the sample uncompacted with the live-lane check after each
+    bounce's cast and shade (TraceOptions.check_nans), which raises
+    FloatingPointError naming the bounce and the stage; if no live lane
+    holds one there, raise naming the layers and pixels of the output."""
+    nan = torch.isnan(vals).any(dim=-1)  # [L, H, W]
+    if not bool(nan.any()):
+        return
+    sample_pass(scene, key, sample, fov_x, width, height,
+                opts._replace(lane_schedule=None, check_nans=True))
+    names = probes.layer_names() if debug else ["beauty"]
+    layers = [names[i] for i in range(nan.shape[0]) if bool(nan[i].any())]
+    ids = torch.nonzero(nan.any(dim=0).reshape(-1))[:8, 0].tolist()
+    raise FloatingPointError(
+        f"NaN in the values sample {int(sample)} folds in (layers {layers}; "
+        f"first pixel ids {ids}); no live lane of its uncompacted re-run "
+        "holds one after a cast or a shade")
+
+
 def make_render_step(cfg: RenderConfig, fov_x: float, lane_schedule=None,
-                     device="cuda") -> Callable:
+                     device="cuda", debug_nans: bool = False) -> Callable:
     """Build the step: (scene, stats, key, sample_start) -> (stats, info).
     Computes cfg.samples_per_step full-image samples in order and folds
-    them into `stats` in place. `info` is an int64 tensor on the device:
-    [rays cast, compaction overflow lanes, live lanes entering bounce
-    0..depth-1], summed over the step's samples (the JAX step returns the
-    first two)."""
+    them into `stats` in place: the beauty layer, and with
+    cfg.debug_features every registered probe's layer. `info` is an int64
+    tensor on the device: [rays cast, compaction overflow lanes, live lanes
+    entering bounce 0..depth-1], summed over the step's samples (the JAX
+    step returns the first two).
+
+    debug_nans: check every sample's values for NaN before they are folded
+    (one device sync a sample) and raise FloatingPointError naming the
+    sample, the bounce, the stage and the first pixel ids (_raise_on_nans).
+    Off, the step runs no check and no sync."""
     opts = _trace_options(cfg, cfg.compact_schedule or lane_schedule)
     H, W = cfg.height, cfg.width
 
@@ -161,7 +212,11 @@ def make_render_step(cfg: RenderConfig, fov_x: float, lane_schedule=None,
             radiance, aux = sample_pass(
                 scene, key, sample_start + k, fov_x, W, H, opts
             )
-            accum.update_layers(stats, radiance[None])
+            vals = sample_layer_values(radiance, aux, cfg.debug_features)
+            if debug_nans:
+                _raise_on_nans(scene, key, sample_start + k, vals, fov_x, W,
+                               H, opts, cfg.debug_features)
+            accum.update_layers(stats, vals)
             vals = torch.cat([aux["rays_cast"].reshape(1),
                               aux["overflow"].reshape(1),
                               aux["alive_counts"]])
@@ -224,6 +279,7 @@ def render_scene(
     make_stats: Optional[Callable] = None,
     converge_se: float = 0.0,
     converge_check_every: int = 16,
+    debug_nans: bool = False,
 ) -> RenderResult:
     """Full render with benchmark trials (render_scene,
     raytracer.odin:602-665). Each trial renders cfg.samples samples, or in
@@ -237,6 +293,10 @@ def render_scene(
     the beauty mean (mean_standard_error) is computed, and the render stops
     once it drops below the threshold.
 
+    With cfg.debug_features the stats hold cfg.num_layers layers and the
+    render runs uncompacted, without calibration. debug_nans: see
+    make_render_step.
+
     The step counters stay on the device and are read once at the end."""
     dev = _require_device(scene, device)
     lane_schedule = None
@@ -246,10 +306,11 @@ def render_scene(
             lane_schedule = auto_lane_schedule(scene, cfg, fov_x,
                                                device=device)
     step = make_render_step(cfg, fov_x, lane_schedule=lane_schedule,
-                            device=device)
+                            device=device, debug_nans=debug_nans)
     if make_stats is None:
         def make_stats():
-            return accum.init_stats(1, cfg.height, cfg.width, device=dev)
+            return accum.init_stats(cfg.num_layers, cfg.height, cfg.width,
+                                    device=dev)
     key = prng.key_from_seed(cfg.seed)
 
     def sync():
@@ -312,7 +373,7 @@ def render_scene(
             device=device, trials=trials, interrupt=interrupt,
             on_step=on_step, verbose=verbose, make_stats=make_stats,
             converge_se=converge_se,
-            converge_check_every=converge_check_every,
+            converge_check_every=converge_check_every, debug_nans=debug_nans,
         )
         return dataclasses.replace(redo, overflow=int(overflow))
     return RenderResult(

@@ -1,9 +1,10 @@
-"""Vector and quaternion math on [..., k] tensors (port of
-raytracer_odin_tpu/utils/math3d.py; the host-side projection helpers of
-the debug overlay are not ported)."""
+"""Vector and quaternion math on [..., k] tensors, and the host-side
+projection helpers of the debug overlay (port of
+raytracer_odin_tpu/utils/math3d.py)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -71,3 +72,66 @@ def quat_from_z_to(n):
     q_flip = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=n.dtype,
                           device=n.device).expand_as(q_main)
     return torch.where((w > 0)[..., None], q_main, q_flip)
+
+
+# ---------------------------------------------------------------------------
+# Projection helpers for the debug-line overlay (utils.odin:22-98). Host-side
+# numpy, as in the JAX package: they draw on snapshots, not in the hot path.
+# ---------------------------------------------------------------------------
+
+def world_to_screen(cam_pos, cam_basis, fov_x, dims, point):
+    """Perspective projection of a world point to pixel coords
+    (utils.odin:22-37).
+
+    dims = (width, height). Returns (x, y) with y flipped to image rows; NaN
+    when the point is (numerically) in the camera plane."""
+    p = np.asarray(point, np.float32) - np.asarray(cam_pos, np.float32)
+    p = np.linalg.inv(np.asarray(cam_basis, np.float32)) @ p
+    if abs(p[2]) < 1e-6:
+        return np.array([np.nan, np.nan], np.float32)
+    p = p / p[2]
+    w, h = float(dims[0]), float(dims[1])
+    aspect = w / h
+    tan_fx = np.tan(fov_x / 2)
+    tan_fy = tan_fx / aspect
+    sx = (p[0] / tan_fx * 0.5 + 0.5) * w
+    sy = (p[1] / tan_fy * 0.5 + 0.5) * h
+    return np.array([sx, h - sy], np.float32)
+
+
+def line_to_screen(cam_pos, cam_basis, fov_x, dims, p0_world, p1_world):
+    """Clip a world-space segment against the 5-plane view frustum and
+    project it (utils.odin:39-98). Returns (s0, s1, ok)."""
+    inv = np.linalg.inv(np.asarray(cam_basis, np.float32))
+    p0 = inv @ (np.asarray(p0_world, np.float32) - cam_pos)
+    p1 = inv @ (np.asarray(p1_world, np.float32) - cam_pos)
+    w, h = float(dims[0]), float(dims[1])
+    aspect = w / h
+    tan_fx = np.tan(fov_x / 2)
+    tan_fy = tan_fx / aspect
+
+    planes = [
+        lambda p: p[2] - 1e-3,
+        lambda p: p[0] + tan_fx * p[2],
+        lambda p: tan_fx * p[2] - p[0],
+        lambda p: p[1] + tan_fy * p[2],
+        lambda p: tan_fy * p[2] - p[1],
+    ]
+    for plane in planes:
+        f0, f1 = plane(p0), plane(p1)
+        if f0 < 0 and f1 < 0:
+            return None, None, False
+        if f0 < 0:
+            t = f0 / (f0 - f1)
+            p0 = p0 + (p1 - p0) * t
+        elif f1 < 0:
+            t = f0 / (f0 - f1)
+            p1 = p0 + (p1 - p0) * t
+
+    def project(p):
+        p = p / p[2]
+        sx = (p[0] / tan_fx * 0.5 + 0.5) * w
+        sy = (p[1] / tan_fy * 0.5 + 0.5) * h
+        return np.array([sx, h - sy], np.float32)
+
+    return project(p0), project(p1), True

@@ -8,6 +8,9 @@ share edges and vertices, rays aimed exactly at those edges and vertices,
 a cluster repeated under another id (equal t in two listed clusters), BIG
 pad rows, dead lanes carrying NaN, direction components at +-0 and at the
 1e-30 clamp, and warps in which a single lane can pass the bu test.
+`dead_lane_frame` is the uncompacted trace's sorted cast at a later
+bounce: a whole frame of lanes, a third of them dead with NaN rays, that
+traverse.sort_exact turns into K1's and K2's inputs.
 The sweep batches come in three forms, one per instance of the sweep
 kernel (SWEEPS): K2's 256-ray lists, K4's 512-ray lists, and K3's sweep of
 every cluster by every 512-ray block. K5's batches (light_batch) aim the
@@ -180,6 +183,40 @@ def sweep_batch(case: str, kernel: str = "K2"):
         counts = torch.full((nsb,), 6, dtype=torch.int32)
     assert int(counts.max()) <= nc
     return tris, counts, lists.contiguous(), r
+
+
+def dead_lane_frame(seed: int = 75):
+    """The inputs of traverse.sort_exact on the uncompacted trace's sorted
+    cast (cast_rays_pallas(sort=True, alive=...)), on the CPU: (scene, o, d,
+    alive, aabb8, n_bits, tris). `scene` holds the cluster boxes sort_exact
+    reads; o (RAY_EPS-offset) and d [N, 3] are a frame of N_RAYS - 100
+    lanes (the last 512-ray block padded), aimed at the meshes; every third
+    lane and a run of 700 are dead and carry NaN, as the trace's dead lanes
+    carry garbage."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(seed)
+    n = N_RAYS - 100
+    tris = triangles()
+    aabb, n_bits = cluster_boxes(tris)
+    target = np.concatenate([rng.uniform(0, GRID, (n, 2)),
+                             rng.choice(np.float32([0.0, -1.0]), (n, 1))],
+                            1).astype(np.float32)
+    o = np.concatenate([rng.uniform(-2, GRID + 2, (n, 2)),
+                        rng.uniform(1, 6, (n, 1))], 1).astype(np.float32)
+    d = target - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    alive = np.ones(n, bool)
+    alive[0::3] = False
+    alive[1000:1700] = False
+    o[~alive] = np.nan
+    d[~alive] = np.nan
+    o = o + d * np.float32(traverse.RAY_EPS)
+    scene = SimpleNamespace(cluster_lo=torch.from_numpy(aabb[:n_bits, 0:3]),
+                            cluster_hi=torch.from_numpy(aabb[:n_bits, 3:6]))
+    return (scene, torch.from_numpy(o), torch.from_numpy(d),
+            torch.from_numpy(alive), torch.from_numpy(aabb), n_bits,
+            torch.from_numpy(tris))
 
 
 # Each instance's wrapper: its `launches` counts the kernel's launches.

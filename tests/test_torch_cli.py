@@ -1,7 +1,8 @@
 """The port's command-line driver, run in process on the CPU
 (`cli.main(argv, device="cpu")`; mirrors tests/test_cli.py:35-117), the
-flags it does not port yet, its output against the JAX package's CLI from
-the same argv, and its numpy oracle against the JAX package's.
+flags it does not port yet, its debug flags (--debug with --layer,
+--preview-file, --debug-nans), its output against the JAX package's CLI
+from the same argv, and its numpy oracle against the JAX package's.
 
 Tolerance of the CLI comparison: the two renders agree to the golden
 test's rtol 1e-4, atol 1e-5 (tests/test_torch_render.py), which tone
@@ -13,6 +14,9 @@ import numpy as np
 import pytest
 
 from raytracer_odin_tpu import cli as jcli
+from raytracer_odin_tpu.ops import probes as jprobes
+from raytracer_odin_tpu.render import checkpoint as jcheckpoint
+from raytracer_odin_tpu.render import output as joutput
 from raytracer_odin_tpu.io import gltf as jgltf
 from raytracer_odin_tpu.io import images as jimages
 from raytracer_odin_tpu.models import assets as jassets
@@ -20,7 +24,8 @@ from raytracer_odin_tpu.models import build as jbuild
 from raytracer_odin_tpu.oracle import cpu_reference as joracle
 from raytracer_odin_tpu.utils import compile_cache
 from raytracer_odin_tpu_torch import cli
-from raytracer_odin_tpu_torch.io import gltf, hdr, images
+from raytracer_odin_tpu_torch.io import gltf, hdr, images, png
+from raytracer_odin_tpu_torch.ops import probes
 from raytracer_odin_tpu_torch.models import assets, build
 from raytracer_odin_tpu_torch.oracle import cpu_reference as oracle
 from tests.torch_parity import torch_scene
@@ -110,15 +115,10 @@ def test_profile_dir(cube_gltf, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--debug"], "item 1"),
-    (["--layer", "2"], "item 1"),
-    (["--preview-port", "8000"], "item 1"),
-    (["--preview-file", "p.png"], "item 1"),
-    (["--debug-nans"], "item 1"),
-    (["--devices", "2"], "item 2"),
-    (["--spp-devices", "2"], "item 2"),
-    (["--pool"], "item 3"),
-    (["--compact", "refill"], "item 3"),
+    (["--devices", "2"], "item 1"),
+    (["--spp-devices", "2"], "item 1"),
+    (["--pool"], "item 2"),
+    (["--compact", "refill"], "item 2"),
 ])
 def test_unported_flags_raise(cube_gltf, flags, item):
     with pytest.raises(NotImplementedError, match=f"queue A {item}"):
@@ -172,3 +172,77 @@ def test_cli_defaults_to_cuda(cube_gltf):
     of rendering on the CPU."""
     with pytest.raises((RuntimeError, AssertionError)):
         cli.main([cube_gltf, *SMALL, "--quiet"])
+
+
+DEBUG_ARGV = ("--width", "16", "--height", "16", "--ray-depth", "3",
+              "--num-samples", "2", "--seed", "1", "--mode", "mean",
+              "--quiet")
+
+
+@pytest.fixture(scope="module")
+def jax_debug_stats(cube_gltf, tmp_path_factory):
+    """The JAX CLI's --debug render of the cube (ten layers), through its
+    checkpoint."""
+    ck = tmp_path_factory.mktemp("jax_debug") / "ck.npz"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(compile_cache, "enable", lambda *a, **k: None)
+        assert jcli.main([str(cube_gltf), "--debug", "--devices", "1",
+                          "--checkpoint", str(ck), *DEBUG_ARGV]) == 0
+    stats, samples, _ = jcheckpoint.load(str(ck))
+    assert samples == 2
+    return stats
+
+
+@pytest.mark.parametrize("name", jprobes.layer_names())
+def test_debug_layer_by_name_matches_jax(cube_gltf, tmp_path, name,
+                                         jax_debug_stats):
+    """--debug --layer <name> writes that layer, equal to the JAX CLI's PNG
+    of the same layer from the same argv within one 8-bit level (on the
+    CPU both resolve "auto" to "brute")."""
+    out = tmp_path / f"{name}.png"
+    assert run_cli(cube_gltf, out, "--debug", "--layer", name,
+                   *DEBUG_ARGV) == 0
+    got = png.decode(out.read_bytes()).astype(int)
+    index = probes.layer_names().index(name)
+    want = joutput.layer_to_rgb(jax_debug_stats, index, "mean").astype(int)
+    assert got.shape == want.shape == (16, 16, 3)
+    assert np.abs(got - want).max() <= 1
+    if name != "beauty":
+        assert run_cli(cube_gltf, tmp_path / "i.png", "--debug", "--layer",
+                       str(index), *DEBUG_ARGV) == 0
+        assert (tmp_path / "i.png").read_bytes() == out.read_bytes()
+
+
+def test_unknown_layer_lists_names(cube_gltf, capsys):
+    with pytest.raises(SystemExit):
+        run_cli(cube_gltf, *SMALL, "--layer", "nope")
+    err = capsys.readouterr().err
+    assert "unknown layer 'nope'; known: " + ", ".join(
+        probes.layer_names()) in err
+
+
+def test_aov_layer_needs_debug(cube_gltf):
+    """Without --debug the render has the beauty layer only (the JAX CLI
+    would clamp the index and write the beauty layer)."""
+    with pytest.raises(ValueError, match="need --debug"):
+        run_cli(cube_gltf, *SMALL, "--layer", "depth", "--quiet")
+
+
+def test_preview_file_snapshot(cube_gltf, tmp_path):
+    """--debug --preview-file writes the snapshot of --layer/--mode."""
+    snap = tmp_path / "snap.png"
+    out = tmp_path / "o.png"
+    assert run_cli(cube_gltf, out, *SMALL, "--debug", "--preview-file",
+                   snap, "--layer", "normal", "--mode", "first",
+                   "--quiet") == 0
+    assert png.decode(snap.read_bytes()).shape == (16, 16, 3)
+    assert snap.read_bytes() == out.read_bytes()
+
+
+def test_debug_nans_flag(cube_gltf, tmp_path):
+    """--debug-nans checks every sample and changes nothing in the image."""
+    a, b = tmp_path / "a.png", tmp_path / "b.png"
+    assert run_cli(cube_gltf, a, *SMALL, "--debug", "--debug-nans",
+                   "--quiet") == 0
+    assert run_cli(cube_gltf, b, *SMALL, "--quiet") == 0
+    assert a.read_bytes() == b.read_bytes()

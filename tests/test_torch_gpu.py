@@ -234,6 +234,48 @@ def test_exact_lists_sweep_bit_equal(cuda):
 
 
 @pytest.mark.gpu
+def test_sorted_dead_lane_frame_bit_equal(cuda, monkeypatch):
+    """The uncompacted trace's sorted cast: traverse.sort_exact on a frame
+    whose dead lanes carry NaN. K1 on the rows it packs for every lane (the
+    dead ones as far rays) and K2 on the sorted batch, dead lanes last, each
+    bit-equal to its plain version; the dead lanes miss."""
+    scene, o, d, alive, aabb, n_bits, tris = kb.dead_lane_frame()
+    scene.cluster_lo = scene.cluster_lo.to(cuda)
+    scene.cluster_hi = scene.cluster_hi.to(cuda)
+    aabb, tris = aabb.to(cuda), tris.to(cuda)
+    # K1's input: the rows sort_exact packs (dead lanes as far rays)
+    packed = []
+    real_pack = pi.pack_rays
+
+    def record(o_, d_):
+        out = real_pack(o_, d_)
+        packed.append(out[0].clone())
+        return out
+
+    monkeypatch.setattr(pi, "pack_rays", record)
+    before = pi.cluster_masks_rows.launches
+    rays2, words, perm = traverse.sort_exact(
+        scene, o.to(cuda), d.to(cuda), alive.to(cuda), aabb, n_bits)
+    monkeypatch.undo()
+    assert pi.cluster_masks_rows.launches == before + 1
+    (rays_pre,) = packed
+    got_k1 = pi.cluster_masks_rows(aabb, rays_pre, n_bits)
+    assert torch.equal(got_k1,
+                       pi._cluster_masks_plain(aabb, rays_pre, n_bits))
+    n, n_alive = o.shape[0], int(alive.sum())
+    assert 0 < n_alive < n < rays2.shape[1]
+    assert bool(alive.to(cuda)[perm][:n_alive].all())
+    assert not bool(alive.to(cuda)[perm][n_alive:].any())
+    counts, lists = traverse.exact_lists(words, n_bits)
+    got = pi.intersect_culled_rows(tris, counts, lists, rays2)
+    want = pi._culled_plain(counts, lists, rays2, tris)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert int((got[1, :n_alive] >= 0).sum()) > n_alive // 2
+    assert bool((got[1, n_alive:] < 0).all())
+
+
+@pytest.mark.gpu
 def test_wrappers_refuse_cpu_cuda_mix(cuda):
     rays = torch.zeros((8, 512), device=cuda)
     with pytest.raises(ValueError):

@@ -308,3 +308,28 @@ def test_nan_min_max_zero_sign_keeps_mask_bits(rule, case, tmax_row):
     assert bool(want.any())
     if case == "signed_zeros":
         assert signed > 0
+
+
+def test_dead_lane_frame_sorts_dead_last():
+    """The uncompacted trace's sorted cast on the CPU (plain K1 and K2, the
+    batch the card tests hold the kernels on): sort_exact turns the NaN
+    dead lanes into far rays with empty masks, sorts them after every live
+    lane, and the sweep gives them misses and the live lanes their hits."""
+    from raytracer_odin_tpu_torch.ops import traverse
+
+    scene, o, d, alive, aabb, n_bits, tris = kb.dead_lane_frame()
+    rays2, words, perm = traverse.sort_exact(scene, o, d, alive, aabb,
+                                             n_bits)
+    n, n_alive = o.shape[0], int(alive.sum())
+    assert torch.equal(alive[perm], torch.arange(n) < n_alive)
+    assert torch.isfinite(rays2).all()
+    # one mask word; the bits above n_bits hold the (dead|octant) sort key
+    assert words.shape[0] == 1 and n_bits < 27
+    bits = words[0] & ((1 << n_bits) - 1)
+    assert not bits[n_alive:].any()
+    assert (words[0, n_alive:n] >> n_bits == 8).all()  # dead, octant 0
+    assert (bits[:n_alive] != 0).float().mean() > 0.5
+    counts, lists = traverse.exact_lists(words, n_bits)
+    out = pi._culled_plain(counts, lists, rays2, tris)
+    assert (out[1, n_alive:] < 0).all()
+    assert (out[1, :n_alive] >= 0).float().mean() > 0.5

@@ -31,3 +31,12 @@ def torch_scene(jax_scene, device="cpu"):
         arrays, env_tex=jax_scene.env_tex, row_spec=jax_scene.row_spec,
         tex_kinds=jax_scene.tex_kinds, stream=stream, device=device,
     )
+
+
+def within_16_ulp(got, want) -> bool:
+    """Every value of `got` within 16 float32 ulp of `want`: the CPU
+    tolerance of a hit distance, since XLA's CPU backend fuses
+    multiply-adds (tests/test_torch_kernels.py)."""
+    want = np.asarray(want, np.float32)
+    return bool(np.all(np.abs(np.asarray(got) - want)
+                       <= 16 * np.spacing(np.abs(want))))
