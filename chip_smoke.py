@@ -83,11 +83,46 @@ wall time:
                  bit-equal to one without; the CLI with --debug --layer depth
                  --preview-file; Mrays/s and step time beside the compacted
                  demo's
- 11. with --profile: one more step of each path under torch.profiler,
+ 11. mesh        the demo through parallel/mesh.py at 1920x1080, depth 8:
+                 a 2 x 1 tile mesh over the cards there are (cuda:0 twice
+                 on one card), compacted with each tile's own budgets, for
+                 the demo's STEPS steps: frame and ray count bit-equal to
+                 the single-card compacted render, overflow 0, launches
+                 (K1 and K2 16 a step and 16 in calibration); K1 and K2
+                 against their plain versions on shard 0's bounce-1 batch;
+                 the host syncs of one sharded step and of one single-card
+                 step (torch.cuda.set_sync_debug_mode("warn"), by file and
+                 line); a 2 x 2 mesh at 2 spp a step against the
+                 single-card frame at the spp tolerance of
+                 tests/test_torch_parallel.py; with two cards, the 2 x 1
+                 mesh over both, bit-equal, its Mrays/s beside one card's
+ 12. refill      the demo with compact="refill", REFILL_STEPS steps of
+                 REFILL_SPP spp: overflow 0, the plan's iterations of K1 and
+                 K2 a step and 8 each in calibration, the frame bit-equal to
+                 the compacted render of the same samples but for the
+                 pixels grouping_flips explains, Mrays/s beside
+                 it and the demo's, K1 and K2 on an iteration of the steady
+                 state against their plain versions
+ 13. cli         cli.main with --devices 2 (two shards on one card where
+                 there is one card), --pool and --compact refill at
+                 1920x1080, depth 8, SCHED_CLI_SPP spp: exit code 0, a PNG
+                 under chiprun_out/ that decodes
+ 14. pool        the demo with wavefront_pool=True, pool_fraction=0.5,
+                 POOL_STEPS steps of 1 spp: waves a step, one K1 and one
+                 K2 a wave, the frame against the batched render's at the
+                 tolerance of tests/test_torch_wavefront.py but for at
+                 most MAX_FLIPS pixels, each explained by grouping_flips
+                 (a ray whose own K1 mask rounds out a cluster it hits),
+                 rays and live lanes within those pixels' paths, a second
+                 run bit-equal, K1 and K2 on a wave of the steady state
+                 against their plain versions
+ 15. with --profile: one more step of each path under torch.profiler,
      device time by kernel class and the device's busy share
- 12. the kernels JSON line (K1-K5 and K1 with its tmax row; each with its
+ 16. the kernels JSON line (K1-K5 and K1 with its tmax row; each with its
      design and registers, its SASS counts, SM clock and issue floors, K2-K5
-     with their warp-vote rates), then the {"ok": true, ...} line.
+     with their warp-vote rates; K1 and K2 with their checks on the mesh
+     shard's, the pool wave's and the refill iteration's batches), then the
+     {"ok": true, ...} line.
 
 The check phase renders the four golden images of tests/golden/ through
 "pallas" (cube and cornell at rtol 1e-3, atol 1e-4; the glossy textured and
@@ -197,6 +232,11 @@ MEAN_RTOL, PASS_FRACTION, MAX_ABS = 1e-3, 0.95, 0.1
 TWO_PHASE_K = 2
 # The CLI path's output image, under the gitignored chiprun_out/.
 CLI_PNG = ROOT / "chiprun_out" / "cli_demo.png"
+# Steps of the pool path, samples a step and steps of the refill path, and
+# samples of the scheduler CLI runs.
+POOL_STEPS = 2
+REFILL_SPP, REFILL_STEPS = 4, 2
+SCHED_CLI_SPP = 2
 # Timed steps of the debug path, and its CLI's depth layer and snapshot.
 DEBUG_STEPS = 2
 DEBUG_PNG = ROOT / "chiprun_out" / "debug_depth.png"
@@ -223,10 +263,12 @@ def card_line() -> str:
 
 
 def sync(dev):
+    """Wait for every card (a mesh's shards may run on several)."""
     import torch
 
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
 def time_ms(fn, dev, reps: int) -> float:
@@ -1025,16 +1067,21 @@ def reset_counts(counters):
         setattr(fn, attr, 0)
 
 
-def render_path(rt, scene, cfg, fov_x, dev, counters, steps):
+def render_path(rt, scene, cfg, fov_x, dev, counters, steps, make_step=None,
+                make_stats=None):
     """render_scene with every kernel's launch count set to 0 just before
     and read after each step. Returns the result with the launches of each
     step (differences between steps), of calibration (the count after step
-    1 less one step's), step times, Mrays/s and peak device memory."""
+    1 less one step's), step times, Mrays/s and peak device memory.
+    make_step: builds the render's step_fn after the counts are reset (a
+    sharded step calibrates as it is built), with make_stats its
+    accumulator; the step is returned under "step"."""
     import torch
 
     reset_counts(counters)
     if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.reset_peak_memory_stats(i)
     step_end = []
     # the launch counts after each step: calibration plus steps so far
     step_counts = []
@@ -1045,7 +1092,9 @@ def render_path(rt, scene, cfg, fov_x, dev, counters, steps):
         step_counts.append(read_counts(counters))
 
     t_cal = time.perf_counter()
-    res = rt.render_scene(scene, cfg, fov_x, device=dev, on_step=on_step)
+    step = make_step() if make_step is not None else None
+    res = rt.render_scene(scene, cfg, fov_x, device=dev, on_step=on_step,
+                          step_fn=step, make_stats=make_stats)
     launches = read_counts(counters)
     if len(step_counts) != steps:
         raise AssertionError(f"{len(step_counts)} steps ran, not {steps}")
@@ -1054,15 +1103,16 @@ def render_path(rt, scene, cfg, fov_x, dev, counters, steps):
                 for k in counters}
     calibration = {k: step_counts[0][k] - (per_step[k] or [0])[0]
                    for k in counters}
-    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
-            else 0)
+    peak = (max(torch.cuda.max_memory_allocated(i)
+                for i in range(torch.cuda.device_count()))
+            if dev.type == "cuda" else 0)
     seconds = sum(res.trial_seconds)
     trial_start = step_end[-1] - seconds
     step_s = [b - a for a, b in zip([trial_start] + step_end[:-1], step_end)]
     return {"res": res, "launches": launches, "per_step": per_step,
             "calibration": calibration, "calibration_s": trial_start - t_cal,
             "step_s": step_s, "mrays": res.rays_cast / seconds / 1e6,
-            "peak_gib": peak / 2**30}
+            "peak_gib": peak / 2**30, "step": step}
 
 
 def print_render(r, steps, card):
@@ -1152,17 +1202,20 @@ def sweep_instance(name: str) -> str:
             else "K4 stream")
 
 
-def profile_step(rt, stats, scene, cfg, fov_x, schedule, dev, name):
+def profile_step(rt, stats, scene, cfg, fov_x, schedule, dev, name,
+                 step=None):
     """Two more render steps into `stats`, the second under torch.profiler:
     device time by kernel (top rows printed, the whole table written next
     to the render as profile_<name>.txt) and the device's busy share of
-    the step's wall time."""
+    the step's wall time. step: the step to trace (default: the batched
+    step with `schedule`)."""
     from torch.profiler import ProfilerActivity, profile
 
     from raytracer_odin_tpu_torch.utils import prng
 
-    step = rt.make_render_step(cfg, fov_x, lane_schedule=schedule,
-                               device=dev)
+    if step is None:
+        step = rt.make_render_step(cfg, fov_x, lane_schedule=schedule,
+                                   device=dev)
     key = prng.key_from_seed(cfg.seed)
     step(scene, stats, key, 1000)  # warm-up outside the trace
     sync(dev)
@@ -1514,6 +1567,31 @@ def main(argv=None) -> int:
             f"Mrays/s, step {dbg['demo_step_ms']:.3f} ms, in this run; "
             f"{card})")
 
+    # 11-14. the mesh, refill, the CLI's new flags and the pool
+    s = time.perf_counter()
+    paths["mesh"] = mesh_path(rt, trav, pi, scene, cfg, fov_x, dev,
+                              counters, reps, card, demo, kb["g"],
+                              args.profile)
+    ph.done("path mesh", s, f"{paths['mesh']['mrays']:.3f} Mrays/s, step "
+            f"{paths['mesh']['step_ms']:.3f} ms ({paths['mesh']['where']}; "
+            f"single card {demo['mrays']:.3f} Mrays/s; {card})")
+    s = time.perf_counter()
+    paths["refill"] = refill_path(rt, trav, pi, scene, cfg, fov_x, dev,
+                                  counters, reps, card, demo, kb["g"],
+                                  args.profile)
+    ph.done("path refill", s, f"{paths['refill']['mrays']:.3f} Mrays/s, "
+            f"step {paths['refill']['step_ms']:.3f} ms")
+    # the CLI with the mesh and scheduler flags
+    s = time.perf_counter()
+    sched_cli = sched_cli_path(dev, demo_gltf, w, h, rehearsal)
+    ph.done("path cli schedulers", s, json.dumps(sched_cli))
+    s = time.perf_counter()
+    paths["pool"] = pool_path(rt, trav, pi, scene, cfg, fov_x, dev,
+                              counters, reps, card, kb["g"], args.profile)
+    ph.done("path pool", s, f"{paths['pool']['mrays']:.3f} Mrays/s, step "
+            f"{paths['pool']['step_ms']:.3f} ms, waves "
+            f"{paths['pool']['waves']}")
+
     if args.profile:
         s = time.perf_counter()
         profile_step(rt, res.stats, scene, cfg, fov_x,
@@ -1577,7 +1655,10 @@ def main(argv=None) -> int:
                "launches_by_path": by_path("K1"),
                "city24_bounce1": floored(
                    "K1", paths["city24"]["checks"]["K1 bounce 1"], mhz1),
-               "debug_bounce1": paths["debug"]["k1"]}),
+               "debug_bounce1": paths["debug"]["k1"],
+               "mesh_shard_bounce1": paths["mesh"]["k1"],
+               "pool_wave": paths["pool"]["k1"],
+               "refill_iteration": paths["refill"]["k1"]}),
         # K1 with its tmax row: the demo's sorted bounce-1 batch with
         # phase A's t in row 6, on the twophase path
         entry("K1 cluster_masks_rows tmax_row", "K1 tmax",
@@ -1597,7 +1678,10 @@ def main(argv=None) -> int:
                "launches_by_path": by_path("K2"),
                "city_bounce1": floored(
                    "K2", paths["city"]["checks"]["K2 bounce 1"], mhz2),
-               "debug_bounce1": paths["debug"]["k2"]}),
+               "debug_bounce1": paths["debug"]["k2"],
+               "mesh_shard_bounce1": paths["mesh"]["k2"],
+               "pool_wave": paths["pool"]["k2"],
+               "refill_iteration": paths["refill"]["k2"]}),
         # K3: the brute path's bounce-0 camera rays (every bounce sweeps
         # every cluster, uncompacted)
         entry("K3 intersect_brute_rows", "K3",
@@ -2175,6 +2259,480 @@ def cli_path(pi, lc, counters, dev, demo_gltf, scene_dir, w, h,
     return {"mrays": mrays, "launches": launches, "want": want,
             "png": str(CLI_PNG.relative_to(ROOT)), "oracle_s": oracle_s,
             "oracle_mean": float(orc.mean())}
+
+
+def record_sweeps(trav, fn):
+    """fn() with traverse._sweep_exact recording the (mask words, kernel
+    rows) of every sweep it is given, in call order; the kernel wrappers
+    and their counts are untouched. Returns (fn's result, the batches)."""
+    real = trav._sweep_exact
+    seen = []
+
+    def sweep(scene_, words, rays, g, n_super, cap=LIST_CAP):
+        seen.append((words.clone(), rays.clone()))
+        return real(scene_, words, rays, g, n_super, cap)
+
+    trav._sweep_exact = sweep
+    try:
+        out = fn()
+    finally:
+        trav._sweep_exact = real
+    return out, seen
+
+
+def batch_checks(pi, trav, scene, batch, dev, reps):
+    """K1 and K2 against their plain versions on a recorded sorted batch
+    (K1 on the batch's rows, as the demo's bounce-1 check takes them)."""
+    words, rays = batch
+    g, n_super, aabb8 = trav.exact_cull_layout(scene)
+    return (measure_k1(pi, aabb8, rays, n_super, dev, reps),
+            measure_sweep(pi, trav, scene, words, rays, g, n_super, dev,
+                          reps))
+
+
+def sync_sites(fn, dev) -> dict:
+    """fn() under torch.cuda.set_sync_debug_mode("warn"): the host syncs it
+    makes, counted by the file:line of the Python frame that made each
+    ("not measured on the CPU" there)."""
+    import warnings
+
+    import torch
+
+    if dev.type != "cuda":
+        fn()
+        return {"not measured on the CPU": 0}
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sites = {}
+    for w in caught:
+        if "synchroniz" not in str(w.message):
+            continue
+        where = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+        sites[where] = sites.get(where, 0) + 1
+    return sites
+
+
+def same_stats(a, b, name, tol=None):
+    """Every field of stats `a` equal to `b` (with tol, a dict field ->
+    (rtol, atol), those fields within it). Returns the largest absolute
+    difference a field."""
+    import torch
+
+    diffs = {}
+    for f in ("first", "last", "total", "total_sq", "count"):
+        x, y = getattr(a, f), getattr(b, f)
+        diffs[f] = float((x - y).abs().max())
+        if tol and f in tol:
+            rtol, atol = tol[f]
+            ok = torch.allclose(x, y, rtol=rtol, atol=atol)
+        else:
+            ok = torch.equal(x, y)
+        if not ok:
+            raise AssertionError(f"{name}: {f} differs (max {diffs[f]})")
+    return diffs
+
+
+# The most pixels two schedulers' frames may differ in, each explained by
+# grouping_flips.
+MAX_FLIPS = 16
+
+
+def grouping_flips(rt, integ, scene, cfg, fov_x, pixels, n_samples):
+    """Explain the pixels (row, x) where two schedulers' frames differ.
+    Exact culling lists for each block of rays the clusters their own K1
+    masks hold, so a ray whose slab test rounds out the box of a cluster it
+    hits finds that hit only where another ray of its block lists the
+    cluster (ROADMAP.md queue C item 4): its hit depends on which rays
+    share its block, and the pool and refill group rays otherwise than the
+    batched render. A pixel is explained when one of its samples, traced
+    alone with its stream id through "pallas" (lists from its own masks)
+    and through "pallas_brute" (K3: every cluster), meets a bounce whose
+    hit distances differ. Returns (x, row, sample, bounce, t from its own
+    lists, t over every cluster) a pixel; raises for a pixel it cannot
+    explain."""
+    import torch
+
+    from raytracer_odin_tpu_torch.utils import prng
+
+    key = prng.key_from_seed(cfg.seed)
+    w, h = cfg.width, cfg.height
+    out = []
+    for row, x in pixels:
+        found = None
+        for s in range(n_samples):
+            o, d = rt.camera_rays(scene, key, s, fov_x, w, h, row, 1)
+            o, d = o[0, x:x + 1], d[0, x:x + 1]
+            sid = torch.full((1,), row * w + x, dtype=torch.int32,
+                             device=o.device)
+            ts = [integ.trace(scene, o, d, key, s, integ.TraceOptions(
+                depth=cfg.ray_depth, intersector=name, log_paths=True),
+                stream_ids=sid)[1]["ray_log"]["t"][:, 0]
+                for name in ("pallas", "pallas_brute")]
+            diff = torch.nonzero(ts[0] != ts[1])
+            if diff.numel():
+                b = int(diff[0, 0])
+                found = (x, row, s, b, float(ts[0][b]), float(ts[1][b]))
+                break
+        if found is None:
+            raise AssertionError(
+                f"pixel ({x}, {row}) differs between the schedulers, and no "
+                "sample of it meets a triangle its own K1 mask rounds out")
+        out.append(found)
+    return out
+
+
+def schedulers_agree(rt, integ, scene, cfg, fov_x, got, want, name, tol,
+                     n_samples):
+    """`got` (a RenderResult of the pool or refill) against `want` (the
+    batched render of the same samples): every pixel within `tol` (exact
+    where a field has none) but at most MAX_FLIPS, each explained by
+    grouping_flips; ray and live-lane counts within a path a differing
+    (pixel, sample). Returns (the largest difference a field over the
+    agreeing pixels, the flips)."""
+    import torch
+
+    a, b = got.stats, want.stats
+    bad = torch.zeros(a.count.shape[1:], dtype=torch.bool,
+                      device=a.count.device)
+    for f in ("first", "last", "total", "total_sq"):
+        x, y = getattr(a, f)[0], getattr(b, f)[0]
+        rtol, atol = (tol or {}).get(f, (0.0, 0.0))
+        bad |= ((x - y).abs() > atol + rtol * y.abs()).any(-1)
+    bad |= a.count[0] != b.count[0]
+    pixels = torch.nonzero(bad).tolist()
+    if len(pixels) > MAX_FLIPS:
+        raise AssertionError(f"{name}: {len(pixels)} pixels differ from the "
+                             f"batched render (at most {MAX_FLIPS})")
+    flips = grouping_flips(rt, integ, scene, cfg, fov_x, pixels, n_samples)
+    paths = len(pixels) * n_samples
+    if (abs(got.rays_cast - want.rays_cast) > DEPTH * paths
+            or any(abs(u - v) > paths for u, v in zip(got.alive_counts,
+                                                    want.alive_counts))):
+        raise AssertionError(
+            f"{name}: rays {got.rays_cast} and live lanes "
+            f"{got.alive_counts} against the batched render's "
+            f"{want.rays_cast} and {want.alive_counts}, beyond "
+            f"{len(pixels)} differing pixels' paths")
+    keep = ~bad[..., None]
+    diffs = {f: float(torch.where(keep, getattr(a, f)[0] - getattr(b, f)[0],
+                                  0.0).abs().max())
+             for f in ("first", "last", "total", "total_sq")}
+    return diffs, flips
+
+
+# The spp mesh's tolerance (tests/test_torch_parallel.py) and the pool's
+# against the batched render (tests/test_torch_wavefront.py).
+SPP_TOL = {"total": (1e-4, 1e-5), "total_sq": (1e-4, 1e-5),
+           "first": (1e-5, 1e-6), "last": (1e-5, 1e-6)}
+POOL_TOL = {"total": (1e-5, 1e-6), "total_sq": (1e-5, 1e-6)}
+
+
+def path_info(scene, g):
+    return {"triangles": scene.num_triangles,
+            "clusters": scene.cluster_lo.shape[0],
+            "lights": scene.num_lights, "g": g, "streamed": False}
+
+
+def mesh_path(rt, trav, pi, scene, cfg, fov_x, dev, counters, reps, card,
+              demo, g, profile):
+    """Phase 11: the tile mesh and the spp mesh (module docstring)."""
+    import torch
+
+    from raytracer_odin_tpu_torch.parallel import mesh as pmesh
+    from raytracer_odin_tpu_torch.render import accum
+    from raytracer_odin_tpu_torch.utils import prng
+
+    w, h, steps = cfg.width, cfg.height, cfg.samples
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+    key = prng.key_from_seed(cfg.seed)
+
+    def run(n_tile, n_spp, devices, mcfg):
+        mesh = pmesh.make_mesh(n_tile, n_spp, devices=devices)
+        rs = pmesh.replicate_scene(scene, mesh)
+        h_pad = pmesh.padded_height(h, n_tile)
+
+        def fresh():
+            return pmesh.shard_stats(accum.init_stats(
+                1, h_pad, w, device=mesh.devices[0][0]), mesh)
+
+        r = render_path(
+            rt, rs, mcfg, fov_x, dev, counters, mcfg.samples //
+            mcfg.samples_per_step,
+            make_step=lambda: pmesh.make_sharded_render_step(
+                mcfg, fov_x, mesh, rs),
+            make_stats=fresh)
+        res = r["res"]
+        if res.overflow != 0 or r["step"].lane_schedule is None:
+            raise AssertionError(f"mesh {n_tile} x {n_spp}: overflow "
+                                 f"{res.overflow}, or uncompacted")
+        shards = n_tile * n_spp
+        per = mcfg.samples_per_step // n_spp * shards
+        check_launches(f"mesh {n_tile} x {n_spp}", r,
+                       {"K1": per * DEPTH, "K2": per * DEPTH},
+                       {"K1": n_tile * DEPTH, "K2": n_tile * DEPTH},
+                       dev.type != "cuda")
+        r["where"] = (f"{shards} shards on one card"
+                      if len(mesh.distinct) == 1 else
+                      f"{shards} shards on {len(mesh.distinct)} cards")
+        r["step_ms"] = sum(r["step_s"]) / len(r["step_s"]) * 1e3
+        r["cropped"] = accum.crop(res.stats, h, w)
+        return r, mesh, rs, fresh
+
+    # the tile mesh: bit-equal to the single-card compacted demo render
+    tile, mesh, rs, fresh = run(2, 1, [dev, dev], cfg)
+    print_render(tile, steps, card)
+    tres = tile["res"]
+    if tres.rays_cast != demo["res"].rays_cast:
+        raise AssertionError(f"mesh 2 x 1: {tres.rays_cast} rays, the "
+                             f"single card {demo['res'].rays_cast}")
+    same_stats(tile["cropped"], demo["res"].stats, "mesh 2 x 1")
+    step = tile["step"]
+    print(f"  [mesh] 2 x 1 ({tile['where']}): bit-equal to the single-card "
+          f"frame; step {tile['step_ms']:.3f} ms, {tile['mrays']:.3f} "
+          f"Mrays/s (single card {demo['mrays']:.3f}); lane budgets a "
+          f"tile {step.lane_schedule} ({card})", flush=True)
+
+    # K1 and K2 on shard 0's bounce-1 batch (the second sweep of its
+    # first sample; the first is bounce 0's tiled cast)
+    opts = rt._trace_options(cfg, step.lane_schedule[0])
+    _, seen = record_sweeps(trav, lambda: rt.sample_pass(
+        scene, key, 0, fov_x, w, h, opts, row_offset=0,
+        n_rows=step.h_local))
+    k1, k2 = batch_checks(pi, trav, scene, seen[1], dev, reps)
+    del seen
+    print(f"  [mesh] K1 on shard 0's bounce-1 batch: {json.dumps(k1)}",
+          flush=True)
+    print(f"  [mesh] K2 on shard 0's bounce-1 batch: {json.dumps(k2)}",
+          flush=True)
+
+    # host syncs of one sharded step, and of one single-card compacted
+    # step, by the line that makes them
+    st = fresh()
+    syncs = sync_sites(lambda: step(rs, st, key, steps), dev)
+    sync(dev)
+    single = rt.make_render_step(cfg, fov_x,
+                                 lane_schedule=demo["res"].lane_schedule,
+                                 device=dev)
+    st1 = accum.init_stats(1, h, w, device=dev)
+    syncs1 = sync_sites(lambda: single(scene, st1, key, steps), dev)
+    sync(dev)
+    del st, st1
+    print(f"  [mesh] host syncs of one 2 x 1 step: {json.dumps(syncs)}; of "
+          f"one single-card compacted step: {json.dumps(syncs1)}",
+          flush=True)
+    if profile:
+        profile_step(rt, fresh(), rs, cfg, fov_x, None, dev, "mesh",
+                     step=step)
+    del tile["cropped"]
+
+    # the spp mesh: 2 x 2 at 2 spp a step against the single card
+    scfg = cfg.replace(samples=4, samples_per_step=2)
+    quad = [torch.device("cuda", i) for i in range(4)] if n_cards >= 4 \
+        else [dev] * 4
+    spp, *_ = run(2, 2, quad, scfg)
+    print_render(spp, 2, card)
+    ref = rt.render_scene(scene, scfg, fov_x, device=dev)
+    if spp["res"].rays_cast != ref.rays_cast:
+        raise AssertionError("mesh 2 x 2: ray count differs")
+    spp_diff = same_stats(spp["cropped"], ref.stats, "mesh 2 x 2", SPP_TOL)
+    del ref, spp["cropped"]
+    print(f"  [mesh] 2 x 2 ({spp['where']}) at 2 spp a step: within the "
+          f"spp tolerance of the single card (max differences "
+          f"{json.dumps(spp_diff)}); step {spp['step_ms']:.3f} ms, "
+          f"{spp['mrays']:.3f} Mrays/s ({card})", flush=True)
+
+    two_cards = None
+    if n_cards >= 2:
+        pair = [torch.device("cuda", 0), torch.device("cuda", 1)]
+        two, *_ = run(2, 1, pair, cfg)
+        same_stats(two["cropped"], demo["res"].stats, "mesh on two cards")
+        two_cards = {"mrays": two["mrays"], "step_ms": two["step_ms"],
+                     "launches": two["launches"]}
+        del two
+        print(f"  [mesh] 2 x 1 on two cards: {two_cards['mrays']:.3f} "
+              f"Mrays/s against one card's {demo['mrays']:.3f} ({card})",
+              flush=True)
+    else:
+        print("  [mesh] one card here: the mesh over two cards is not "
+              "measured", flush=True)
+    launches = {k: tile["launches"][k] + spp["launches"][k]
+                for k in tile["launches"]}
+    return dict(path_info(scene, g), k1=k1, k2=k2, mrays=tile["mrays"],
+                step_ms=tile["step_ms"], where=tile["where"],
+                peak_gib=max(tile["peak_gib"], spp["peak_gib"]),
+                launches=launches, per_step=tile["per_step"],
+                calibration=tile["calibration"],
+                lane_schedule=step.lane_schedule, syncs=syncs,
+                syncs_single=syncs1,
+                spp={"mrays": spp["mrays"], "step_ms": spp["step_ms"],
+                     "where": spp["where"], "max_diff": spp_diff},
+                two_cards=two_cards)
+
+
+def pool_path(rt, trav, pi, scene, cfg, fov_x, dev, counters, reps, card,
+              g, profile):
+    """Phase 14: the persistent pool (module docstring)."""
+    from raytracer_odin_tpu_torch.ops import integrator as integ
+    from raytracer_odin_tpu_torch.render import accum
+    from raytracer_odin_tpu_torch.utils import prng
+
+    w, h = cfg.width, cfg.height
+    pcfg = cfg.replace(samples=POOL_STEPS, wavefront_pool=True,
+                       pool_fraction=0.5)
+    r = render_path(rt, scene, pcfg, fov_x, dev, counters, POOL_STEPS)
+    print_render(r, POOL_STEPS, card)
+    res = r["res"]
+    waves = list(res.pool_waves)
+    if len(waves) != POOL_STEPS or res.overflow != 0:
+        raise AssertionError(f"pool: waves {waves}, overflow {res.overflow}")
+    want = {"K1": sum(waves), "K2": sum(waves)}
+    got = r["launches"]
+    if dev.type == "cuda" and any(got[k] != want.get(k, 0) for k in got):
+        raise AssertionError(f"pool: launches {got}, want {want} (one K1 "
+                             "and one K2 a wave)")
+    # against the batched render of the same samples
+    ref = rt.render_scene(scene, cfg.replace(samples=POOL_STEPS), fov_x,
+                          device=dev)
+    diff, flips = schedulers_agree(rt, integ, scene, cfg, fov_x, res, ref,
+                                   "pool", POOL_TOL, POOL_STEPS)
+    print(f"  [pool] against the batched render: pixels that differ, each "
+          f"explained (x, row, sample, bounce, t over its own lists, t over "
+          f"every cluster): {flips}; rays {res.rays_cast} against "
+          f"{ref.rays_cast}", flush=True)
+    del ref
+    # reproducible: a second run gives the same bits
+    again = rt.render_scene(scene, pcfg, fov_x, device=dev)
+    same_stats(again.stats, res.stats, "pool run twice")
+    del again
+    # K1 and K2 on a wave of the steady state (lanes of several bounces)
+    key = prng.key_from_seed(cfg.seed)
+    step = rt.make_pool_render_step(pcfg, fov_x, device=dev)
+    st = accum.init_stats(1, h, w, device=dev)
+    _, seen = record_sweeps(trav, lambda: step(scene, st, key, 0))
+    wave = len(seen) // 2
+    k1, k2 = batch_checks(pi, trav, scene, seen[wave], dev, reps)
+    del seen, st
+    for name, m in (("K1", k1), ("K2", k2)):
+        m["wave"] = wave
+        print(f"  [pool] {name} on wave {wave}: {json.dumps(m)}", flush=True)
+    if profile:
+        profile_step(rt, accum_copy(res.stats), scene, pcfg, fov_x, None,
+                     dev, "pool")
+    step_ms = sum(r["step_s"]) / len(r["step_s"]) * 1e3
+    print(f"  [pool] pool {step.pool_size} lanes; waves a step {waves}; "
+          f"step {step_ms:.3f} ms, "
+          f"{r['mrays']:.3f} Mrays/s, peak {r['peak_gib']:.3f} GiB; "
+          f"against the batched render max differences {json.dumps(diff)} "
+          f"but for {len(flips)} explained pixels; "
+          f"reproducible ({card})", flush=True)
+    return dict(path_info(scene, g), k1=k1, k2=k2, mrays=r["mrays"],
+                step_ms=step_ms, waves=waves, peak_gib=r["peak_gib"],
+                launches=r["launches"], max_diff=diff, flips=flips,
+                reproducible=True)
+
+
+def refill_path(rt, trav, pi, scene, cfg, fov_x, dev, counters, reps, card,
+                demo, g, profile):
+    """Phase 12: cross-sample refill (module docstring)."""
+    from raytracer_odin_tpu_torch.ops import integrator as integ
+    from raytracer_odin_tpu_torch.render import accum
+    from raytracer_odin_tpu_torch.utils import prng
+
+    w, h = cfg.width, cfg.height
+    fcfg = cfg.replace(samples=REFILL_SPP * REFILL_STEPS,
+                       samples_per_step=REFILL_SPP, compact="refill")
+    r = render_path(rt, scene, fcfg, fov_x, dev, counters, REFILL_STEPS)
+    print_render(r, REFILL_STEPS, card)
+    res = r["res"]
+    plan = res.refill_plan
+    if res.overflow != 0 or plan is None:
+        raise AssertionError(f"refill: overflow {res.overflow}, plan {plan}")
+    iters = len(plan.fresh)
+    check_launches("refill", r, {"K1": iters, "K2": iters},
+                   {"K1": DEPTH, "K2": DEPTH}, dev.type != "cuda")
+    # against the compacted render of the same samples, 4 spp a step
+    sync(dev)
+    t = time.perf_counter()
+    ref = rt.render_scene(scene, fcfg.replace(compact="auto"), fov_x,
+                          device=dev)
+    ref_mrays = ref.rays_cast / sum(ref.trial_seconds) / 1e6
+    diff, flips = schedulers_agree(rt, integ, scene, fcfg, fov_x, res, ref,
+                                   "refill", None, fcfg.samples)
+    print(f"  [refill] against the compacted render: pixels that differ, "
+          f"each explained (x, row, sample, bounce, t over its own lists, t "
+          f"over every cluster): {flips}; rays {res.rays_cast} against "
+          f"{ref.rays_cast}", flush=True)
+    del ref
+    # K1 and K2 on an iteration of the steady state
+    step = rt.make_refill_render_step(fcfg, fov_x, plan, device=dev)
+    st = accum.init_stats(1, h, w, device=dev)
+    key = prng.key_from_seed(cfg.seed)
+    _, seen = record_sweeps(trav, lambda: step(scene, st, key, 0))
+    it = len(seen) // 2
+    k1, k2 = batch_checks(pi, trav, scene, seen[it], dev, reps)
+    del seen, st
+    for name, m in (("K1", k1), ("K2", k2)):
+        m["iteration"] = it
+        print(f"  [refill] {name} on iteration {it}: {json.dumps(m)}",
+              flush=True)
+    if profile:
+        profile_step(rt, accum_copy(res.stats), scene, fcfg, fov_x, None,
+                     dev, "refill", step=step)
+    step_ms = sum(r["step_s"]) / len(r["step_s"]) * 1e3
+    print(f"  [refill] {iters} iterations a step of {REFILL_SPP} spp, "
+          f"widths {max(plan.keep)} at most; step {step_ms:.3f} ms, "
+          f"{r['mrays']:.3f} Mrays/s against the compacted render's "
+          f"{ref_mrays:.3f} at {REFILL_SPP} spp a step and the demo's "
+          f"{demo['mrays']:.3f} at 1 ({len(flips)} pixels differ, each "
+          f"explained; {card})", flush=True)
+    return dict(path_info(scene, g), k1=k1, k2=k2, mrays=r["mrays"],
+                step_ms=step_ms, iterations=iters, peak_gib=r["peak_gib"],
+                launches=r["launches"], per_step=r["per_step"],
+                calibration=r["calibration"], compacted_mrays=ref_mrays,
+                max_diff=diff, flips=flips)
+
+
+def sched_cli_path(dev, demo_gltf, w, h, rehearsal):
+    """Phase 13: the CLI in process with --devices 2 (two shards on one
+    card where there is one), --pool and --compact refill: each exits 0 and
+    writes a PNG that decodes."""
+    import contextlib
+    import io
+
+    import torch
+
+    from raytracer_odin_tpu_torch import cli
+    from raytracer_odin_tpu_torch.io import images
+
+    two_cards = dev.type == "cuda" and torch.cuda.device_count() >= 2
+    out = {}
+    for name, flags in (("mesh", ["--devices", "2"]), ("pool", ["--pool"]),
+                        ("refill", ["--compact", "refill"])):
+        png_path = CLI_PNG.with_name(f"cli_{name}.png")
+        argv = [str(demo_gltf), str(png_path), "--width", str(w),
+                "--height", str(h), "--ray-depth", str(DEPTH),
+                "--num-samples", str(SCHED_CLI_SPP), *flags]
+        if rehearsal:
+            argv += ["--intersector", "pallas"]
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = cli.main(argv, device="cuda" if (two_cards and
+                                                  name == "mesh") else dev)
+        sync(dev)
+        lines = [ln for ln in text.getvalue().splitlines()
+                 if "Throughput" in ln or "Mesh:" in ln]
+        if rc != 0:
+            raise AssertionError(f"cli {flags}: exit code {rc}")
+        if images.load_image(png_path).data.shape != (h, w, 3):
+            raise AssertionError(f"cli {flags}: the PNG does not decode")
+        out[name] = lines
+        print(f"  [cli {' '.join(flags)}] " + " | ".join(lines), flush=True)
+    return out
 
 
 if __name__ == "__main__":

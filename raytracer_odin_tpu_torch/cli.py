@@ -8,12 +8,20 @@ output image, plus --debug --times --continious --threads --width --height
 window, with --debug), --checkpoint/--resume, --layer/--mode output
 selection, --oracle (render with the numpy reference implementation),
 --seed, --spp-per-step, --intersector, --compact, --converge-se,
---debug-nans, --profile-dir. The flags, their defaults and the config
-resolution are the JAX CLI's. Flags whose paths the port does not have yet
-raise NotImplementedError naming the ROADMAP.md item that brings them.
+--debug-nans, --profile-dir, --devices/--spp-devices (the mesh's shape,
+parallel/mesh.py), --pool and --compact refill. The flags, their defaults
+and the config resolution are the JAX CLI's.
 
 Run on the card:  python -m raytracer_odin_tpu_torch scene.gltf out.png ...
 From Python:      cli.main([...], device="cpu") renders on the CPU.
+
+Devices of the mesh. With device="cuda" the mesh takes the cards:
+--devices 0 means every card (torch.cuda.device_count() // --spp-devices
+tiles, as the JAX CLI takes every device), and a mesh larger than the
+cards there are raises ValueError. With one named device ("cpu",
+"cuda:0", ...) the mesh repeats that device: --devices 0 means one tile,
+--devices 2 two shards on it (how the CPU tests, and one card, rehearse a
+mesh).
 """
 
 from __future__ import annotations
@@ -24,11 +32,6 @@ import sys
 import time
 
 import numpy as np
-
-# ROADMAP.md queue A items that bring the flags not ported yet.
-_MESH_ITEM = "ROADMAP.md queue A item 1 (multi-GPU sharding)"
-_SCHED_ITEM = "ROADMAP.md queue A item 2 (the other schedulers)"
-
 
 def _layer_arg(v: str) -> int:
     """--layer accepts an index or a registered probe name (ops/probes)."""
@@ -75,24 +78,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--spp-per-step", type=int, default=0,
                    help="Samples per device step (default: auto)")
     p.add_argument("--devices", type=int, default=0,
-                   help="Image-tile devices (one; more are not ported yet)")
+                   help="Image-tile devices (default: all)")
     p.add_argument("--spp-devices", type=int, default=1,
-                   help="Sample-sharding devices (one; more are not ported "
-                        "yet)")
+                   help="Sample-sharding devices (mesh second axis)")
     p.add_argument("--intersector",
                    choices=["auto", "bvh", "brute", "pallas",
                             "pallas_brute"],
                    default="auto")
     p.add_argument("--pool", action="store_true",
-                   help="Persistent wavefront pool (not ported yet)")
+                   help="Persistent wavefront pool (ops/wavefront.py): a "
+                        "fixed lane pool over the step's (sample, pixel) "
+                        "queue; implies no debug layers")
     p.add_argument("--pool-fraction", type=float, default=0.5)
     p.add_argument("--compact", choices=["auto", "off", "refill"],
                    default="auto",
                    help="Dead-lane scheduling: 'auto' slices the sorted "
                         "wavefront to calibrated per-bounce lane budgets "
                         "(overflow triggers an uncompacted re-render); "
-                        "'off' keeps full-width lanes; 'refill' is not "
-                        "ported yet")
+                        "'off' keeps full-width lanes; 'refill' runs the "
+                        "cross-sample refill scheduler (ops/refill.py; the "
+                        "exact-culled path, no debug layers; the batched "
+                        "step elsewhere; overflow triggers an uncompacted "
+                        "re-render)")
     p.add_argument("--layer", type=_layer_arg, default=0,
                    help="Output layer: index or probe name (beauty, "
                         "normal, depth, ... - any name registered via "
@@ -131,26 +138,35 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    """Raise for every flag whose path the port does not have yet."""
-    unported = [
-        (args.devices > 1 or args.spp_devices > 1,
-         "--devices/--spp-devices above 1", _MESH_ITEM),
-        (args.pool, "--pool", _SCHED_ITEM),
-        (args.compact == "refill", "--compact refill", _SCHED_ITEM),
-    ]
-    for used, flag, item in unported:
-        if used:
-            raise NotImplementedError(
-                f"{flag} is not ported to raytracer_odin_tpu_torch yet: "
-                f"{item}")
+def mesh_devices(n_tile: int, n_spp: int, device) -> tuple:
+    """The mesh shape (tiles, spp shards) and the devices it is built from,
+    for --devices n_tile (0: all) and --spp-devices n_spp on `device` (see
+    the module docstring)."""
+    import torch
+
+    n_spp = max(1, n_spp)
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        n_avail = torch.cuda.device_count()
+        n_tile = n_tile or max(1, n_avail // n_spp)
+        if n_tile * n_spp == 1:
+            return 1, 1, [dev]
+        if n_tile * n_spp > n_avail:
+            raise ValueError(
+                f"--devices {n_tile} x --spp-devices {n_spp} needs "
+                f"{n_tile * n_spp} cards; {n_avail} CUDA device(s) found")
+        return n_tile, n_spp, [torch.device("cuda", i)
+                               for i in range(n_tile * n_spp)]
+    n_tile = n_tile or 1
+    return n_tile, n_spp, [dev] * (n_tile * n_spp)
 
 
 def main(argv=None, device="cuda") -> int:
     """Run the CLI on `argv` (sys.argv by default). Everything runs on
     `device`: the card unless the caller asks for "cpu"."""
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
+    n_tile, n_spp, mesh_pool = mesh_devices(args.devices, args.spp_devices,
+                                            device)
     log = (lambda *a: None) if args.quiet else print
 
     from raytracer_odin_tpu_torch.config import RenderConfig
@@ -191,7 +207,9 @@ def main(argv=None, device="cuda") -> int:
         width=width, height=height, ray_depth=depth, samples=samples,
         continuous=args.continious, samples_per_step=spp_step,
         seed=args.seed, debug_features=args.debug and not args.pool,
-        intersector=args.intersector, compact=args.compact,
+        intersector=args.intersector, wavefront_pool=args.pool,
+        pool_fraction=args.pool_fraction, compact=args.compact,
+        num_devices=n_tile * n_spp,
     )
     if not 0 <= args.layer < cfg.num_layers:
         # The JAX CLI's indexing clamps an index past the last layer.
@@ -261,6 +279,31 @@ def main(argv=None, device="cuda") -> int:
             h(stats, samples_done)
 
     trials = args.times if args.times > 0 else 1
+    step_fn = None
+    make_stats = None
+    if n_tile * n_spp > 1:
+        from raytracer_odin_tpu_torch.parallel import mesh as pmesh
+
+        mesh = pmesh.make_mesh(n_tile=n_tile, n_spp=n_spp,
+                               devices=mesh_pool)
+        scene = pmesh.replicate_scene(scene, mesh)
+        step_fn = pmesh.make_sharded_render_step(cfg, fov_x, mesh, scene)
+        # Rows pad to the tile axis internally; the user's resolution is
+        # never changed (crop at every readout).
+        h_pad = pmesh.padded_height(height, n_tile)
+
+        def make_stats():
+            return pmesh.shard_stats(
+                accum.init_stats(cfg.num_layers, h_pad, width,
+                                 device=mesh.devices[0][0]), mesh)
+
+        if initial_stats is not None:
+            initial_stats = pmesh.shard_stats(initial_stats, mesh)
+        log(f"Mesh: {n_tile} tile x {n_spp} spp devices"
+            + (f" (rows padded {height} -> {h_pad})" if h_pad != height
+               else "")
+            + ("" if len(mesh.distinct) == n_tile * n_spp else
+               f" on {len(mesh.distinct)} device(s)"))
     prof = (profiling.trace(args.profile_dir, device)
             if args.profile_dir else contextlib.nullcontext())
     interrupt = runtime.InterruptFlag().install()
@@ -269,6 +312,7 @@ def main(argv=None, device="cuda") -> int:
             res = runtime.render_scene(
                 scene, cfg, fov_x, device=device, trials=trials,
                 interrupt=interrupt, on_step=on_step if hooks else None,
+                step_fn=step_fn, make_stats=make_stats,
                 initial_stats=initial_stats, initial_samples=initial_samples,
                 verbose=not args.quiet, converge_se=args.converge_se,
                 debug_nans=args.debug_nans,

@@ -2,10 +2,8 @@
 
 Mirrors the reference's ``Rendering_Config`` (main.odin:27-32) plus the
 execution knobs the port honours, under the JAX package's field names and
-defaults, but for `debug_features` (see RenderConfig). Fields of the JAX
-configuration that select paths the port does not have yet (the pool and
-refill schedulers, the light chunk, multi-device) come with those paths
-(ROADMAP.md).
+defaults, but for `debug_features` (see RenderConfig). Every field of the
+JAX configuration is here.
 """
 
 from __future__ import annotations
@@ -39,16 +37,28 @@ class RenderConfig:
         chunked dense sweep), "bvh" (the stackless BVH walk) or "auto"
         ("pallas" on the card; on the CPU "brute" up to brute_max_tris
         triangles, "bvh" above).
+      light_chunk: lights a step of the dense light pdf
+        (shading.light_pdf_sum's chunk).
       brute_chunk: triangles per chunk of the "brute" sweep.
       brute_max_tris: the triangle count up to which "auto" means "brute"
         on the CPU.
+      precision: "f32", the only precision the port renders in (the JAX
+        package accepts "bf16" and reads neither); anything else raises
+        ValueError.
+      wavefront_pool: render each step through the persistent lane pool
+        (ops/wavefront.py) instead of the batched wavefront; beauty only.
+      pool_fraction: the pool's lanes as a fraction of the pixels.
       compact: "auto" calibrates per-bounce lane budgets from a 1-spp
         measurement (runtime.auto_lane_schedule) and compacts dead lanes;
-        "off" keeps full-width masked lanes.
+        "off" keeps full-width masked lanes; "refill" runs the cross-sample
+        refill scheduler (ops/refill.py) where it applies (refill_applies),
+        the batched wavefront elsewhere, as in the JAX package.
       compact_margin: safety factor on the measured alive counts; an
         undershoot is detected and re-rendered uncompacted, never biased.
       compact_schedule: explicit lane budgets for bounces 1..ray_depth-1
         (overrides compact="auto").
+      num_devices: devices to shard the image over (None = all of them);
+        parallel/mesh.py and the CLI's --devices.
     """
 
     width: int = 512
@@ -60,11 +70,21 @@ class RenderConfig:
     seed: int = 0
     debug_features: bool = False
     intersector: str = "auto"
+    light_chunk: int = 256
     brute_chunk: int = 512
     brute_max_tris: int = 512
+    precision: str = "f32"
+    wavefront_pool: bool = False
+    pool_fraction: float = 0.5
     compact: str = "off"
     compact_margin: float = 1.04
     compact_schedule: Optional[tuple] = None
+    num_devices: Optional[int] = None
+
+    def __post_init__(self):
+        if self.precision != "f32":
+            raise ValueError(f"precision={self.precision!r}: the port "
+                             "renders in 'f32' only")
 
     @property
     def num_layers(self) -> int:

@@ -6,8 +6,9 @@ exact union work list (ascending cluster ids). The bundle-interval cull
 (block_bounds*, cull_clusters) refines the super-cluster masks of the
 two-level layout (traverse.sweep_lists) and culls the light clusters of
 the many-light pdf (light_cull), and gives the nearest-first list order.
-The coherence keys of the JAX package's non-exact sorted cast are not
-ported (no path of the port sorts without exact masks).
+The coherence keys (coherence_keys) order the sorted cast that has no
+masks: the brute sweep's (traverse.cast_rays_pallas(culled=False,
+sort=True)).
 """
 
 from __future__ import annotations
@@ -149,7 +150,7 @@ def build_lists(hit_mask, cap: int | None = None, near=None,
             # ids (exact in float32) in place of near on overflowing rows
             over = (counts > cap)[:, None]
             near = torch.where(over, ids.to(near.dtype), near)
-        key = torch.where(hit_mask, near, torch.tensor(BIG, device=dev))
+        key = torch.where(hit_mask, near, BIG)
         lists = torch.sort(key, dim=-1, stable=True).indices
         if chunk is not None:
             ck = torch.where(hit_mask, ids // chunk, -(-c // chunk))
@@ -165,6 +166,33 @@ def build_lists(hit_mask, cap: int | None = None, near=None,
             width = max(cap, int(counts.max()))
         lists = lists[:, :width]
     return counts, lists.contiguous()
+
+
+def coherence_keys(o, d, alive, scene_lo, scene_hi):
+    """Sort keys grouping rays into coherent bundles without masks:
+    (dead last) | direction octant | origin Morton cell on an 8x8x8 grid
+    over the scene box | a 4-bit direction cell in the octant. [N] int32,
+    the JAX package's keys bit for bit."""
+    ext = torch.clamp(scene_hi - scene_lo, min=1e-6)
+    cell = torch.clamp(((o - scene_lo) / ext * 8.0).to(torch.int32), 0, 7)
+
+    def spread3(x):
+        x = (x | (x << 8)) & 0x0300F
+        x = (x | (x << 4)) & 0x030C3
+        x = (x | (x << 2)) & 0x09249
+        return x
+
+    morton = (spread3(cell[..., 0]) | (spread3(cell[..., 1]) << 1)
+              | (spread3(cell[..., 2]) << 2))
+    octant = ((d[..., 0] < 0).to(torch.int32)
+              + 2 * (d[..., 1] < 0).to(torch.int32)
+              + 4 * (d[..., 2] < 0).to(torch.int32))
+    ax = torch.abs(d[..., 0])
+    ay = torch.abs(d[..., 1])
+    dq = ((ax > 0.35).to(torch.int32) + 2 * (ax > 0.75).to(torch.int32)
+          + 4 * (ay > 0.35).to(torch.int32) + 8 * (ay > 0.75).to(torch.int32))
+    dead = (~alive).to(torch.int32)
+    return (dead << 19) | (octant << 16) | (morton << 4) | dq
 
 
 def tile_shape(h: int, w: int, th: int = 16, tw: int = 32):

@@ -14,6 +14,8 @@ Two schedules, with identical physics (`_shade_vertex`) and sample sets
   * `_trace_compacted` — dead-lane compaction: the state is sorted each
     bounce by (dead|octant, mask words), sliced to a static lane budget and
     the dead tail retired; one scatter by lane id restores image order.
+The persistent pool (ops/wavefront.py) and cross-sample refill
+(ops/refill.py) schedule the same physics and draws over a step's samples.
 The debug surface rides the full-width trace: registered probes
 (want_aux, ops/probes.py), the per-lane ray log (log_paths) and the live-
 lane NaN check (check_nans) each turn compaction off. The columnar state
@@ -30,32 +32,45 @@ from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
 from raytracer_odin_tpu_torch.ops import probes, shading, texture, traverse
 from raytracer_odin_tpu_torch.ops.geometry import BIG, RAY_EPS
 from raytracer_odin_tpu_torch.utils import prng
-from raytracer_odin_tpu_torch.utils.math3d import cross, dot, norm_l1, normalize
+from raytracer_odin_tpu_torch.utils.math3d import (
+    cross,
+    device_vector,
+    dot,
+    norm_l1,
+    normalize,
+)
 
 
 class TraceOptions(NamedTuple):
+    """The JAX package's TraceOptions, field for field and default for
+    default, and the port's NaN check (check_nans) last."""
     depth: int = 8
-    intersector: str = "pallas"
+    intersector: str = "auto"
     # The "brute" intersector's triangles per chunk, and the triangle count
     # up to which "auto" means "brute" on the CPU (traverse.cast_rays).
     brute_chunk: int = 512
     brute_max_tris: int = 512
+    # Lights a step of the dense light pdf (shading.light_pdf_sum).
+    light_chunk: int = 256
     # Accumulate every registered debug probe (ops/probes.py) into aux.
     want_aux: bool = False
+    # Re-bucket the rays of bounces 1.. by the coherence sort before the
+    # cast ("pallas" only); False also turns compaction off.
+    sort_rays: bool = True
     # Record the per-bounce ray log (aux["ray_log"]) of every lane: re-traced
     # with its true stream id, one pixel's log is the full render's path
     # (render/debug_rays.py). Use on small batches only.
     log_paths: bool = False
-    # Raise FloatingPointError at the first NaN on a live lane after a
-    # bounce's cast or shade (--debug-nans' second pass,
-    # runtime.make_render_step); full-width trace only.
-    check_nans: bool = False
     # Dead-lane compaction: static lane budgets for bounces 1..depth-1
     # (runtime.auto_lane_schedule). Lanes beyond a budget that are still
     # alive are counted in aux["overflow"]: the render is then invalid and
     # runtime.render_scene re-renders uncompacted. Ignored where
     # compaction_applies is false.
     lane_schedule: tuple = None
+    # Raise FloatingPointError at the first NaN on a live lane after a
+    # bounce's cast or shade (--debug-nans' second pass,
+    # runtime.make_render_step); full-width trace only.
+    check_nans: bool = False
 
 
 def _point_material(scene, o, d, t, tri_idx):
@@ -172,7 +187,8 @@ def _point_material(scene, o, d, t, tri_idx):
     }
 
 
-def eval_bounce(scene, o, d, t, tri_idx, uniforms, has_lights: bool):
+def eval_bounce(scene, o, d, t, tri_idx, uniforms, has_lights: bool,
+                light_chunk: int = 256):
     """Per-vertex shading: material, mixture sample, pdf, BRDF value and the
     continuation rule. Fields are garbage on misses (callers mask)."""
     m = _point_material(scene, o, d, t, tri_idx)
@@ -183,7 +199,8 @@ def eval_bounce(scene, o, d, t, tri_idx, uniforms, has_lights: bool):
         scene, m["pos"], normal, m["roughness"], d, uniforms, has_lights
     )
     pdf = shading.mixture_pdf(
-        scene, m["pos"], normal, m["roughness"], d, new_d, has_lights
+        scene, m["pos"], normal, m["roughness"], d, new_d, has_lights,
+        light_chunk=light_chunk,
     )
     value = shading.shade(
         m["color"], normal, m["metallic"], m["roughness"], d, new_d
@@ -201,7 +218,7 @@ def eval_bounce(scene, o, d, t, tri_idx, uniforms, has_lights: bool):
 
 
 def _shade_vertex(scene, o, d, t, tri_idx, alive, uniforms, has_lights,
-                  throughput, radiance):
+                  throughput, radiance, light_chunk: int = 256):
     """One path vertex after the cast: env contribution on a miss, emission
     on a hit, mixture sample + continuation rule, throughput update.
 
@@ -218,7 +235,8 @@ def _shade_vertex(scene, o, d, t, tri_idx, alive, uniforms, has_lights,
             missed[..., None], throughput * env, 0.0
         )
 
-    ev = eval_bounce(scene, o, d, t, tri_idx, uniforms, has_lights)
+    ev = eval_bounce(scene, o, d, t, tri_idx, uniforms, has_lights,
+                     light_chunk)
     radiance = radiance + torch.where(
         hit[..., None], throughput * ev["material"]["emission"], 0.0
     )
@@ -247,7 +265,8 @@ def check_live_nans(sample, bounce: int, stage: str, stream_ids, checks):
                 f"pixel ids {ids}")
 
 
-def trace(scene, o, d, key, sample, opts: TraceOptions, stream_ids=None):
+def trace(scene, o, d, key, sample, opts: TraceOptions, stream_ids=None,
+          stream_base=None):
     """Trace radiance for a batch of rays.
 
     o, d: [..., 3] origins/directions (d normalized). key: the seed's word
@@ -258,6 +277,10 @@ def trace(scene, o, d, key, sample, opts: TraceOptions, stream_ids=None):
     bounce, stream_id) - the JAX package's addressing, so both draw the
     same bits, and a lane traced alone with its pixel's stream id draws
     what it draws in the full frame.
+    stream_base: with stream_ids None, the default ids are stream_base +
+    the flat position (a row window of a full frame: a tile shard draws
+    what the full frame draws for the same pixels). The compacted trace
+    carries the stream ids through its sorts.
 
     Returns (radiance [..., 3], aux) with aux "rays_cast" (live path
     segments cast, int64 scalar tensor), "overflow" and "alive_counts"
@@ -270,18 +293,15 @@ def trace(scene, o, d, key, sample, opts: TraceOptions, stream_ids=None):
     shade raises FloatingPointError (check_live_nans)."""
     batch_shape = tuple(o.shape[:-1])
     dev = o.device
-    if opts.lane_schedule is not None and compaction_applies(opts, dev):
-        if stream_ids is not None:
-            raise ValueError("the compacted trace takes each lane's flat "
-                             "position as its stream id")
-        return _trace_compacted(scene, o, d, key, sample, opts)
-
     if stream_ids is None:
         n_lanes = 1
         for s in batch_shape:
             n_lanes *= s
-        stream_ids = torch.arange(n_lanes, dtype=torch.int32,
-                                  device=dev).reshape(batch_shape)
+        stream_ids = (int(stream_base or 0) + torch.arange(
+            n_lanes, dtype=torch.int32, device=dev)).reshape(batch_shape)
+    if opts.lane_schedule is not None and compaction_applies(opts, dev):
+        return _trace_compacted(scene, o, d, key, sample, opts, stream_ids)
+
     has_lights = scene.light_p.shape[0] > 0
     throughput = torch.ones(batch_shape + (3,), dtype=torch.float32,
                             device=dev)
@@ -306,7 +326,8 @@ def trace(scene, o, d, key, sample, opts: TraceOptions, stream_ids=None):
         t, tri_idx = traverse.cast_rays(
             scene, o, d, intersector=opts.intersector,
             brute_chunk=opts.brute_chunk,
-            brute_max_tris=opts.brute_max_tris, sort=b > 0, alive=alive,
+            brute_max_tris=opts.brute_max_tris,
+            sort=b > 0 and opts.sort_rays, alive=alive,
         )
         if opts.check_nans:
             check_live_nans(sample, b, "cast", stream_ids,
@@ -314,7 +335,8 @@ def trace(scene, o, d, key, sample, opts: TraceOptions, stream_ids=None):
         uniforms = prng.uniforms(key, sample, b, stream_ids, 6)
         new_o, new_d, throughput, radiance, cont, ev, hit, missed = (
             _shade_vertex(scene, o, d, t, tri_idx, alive, uniforms,
-                          has_lights, throughput, radiance))
+                          has_lights, throughput, radiance,
+                          opts.light_chunk))
         if opts.check_nans:
             check_live_nans(sample, b, "shade", stream_ids, [
                 ("radiance", radiance, alive),
@@ -362,12 +384,12 @@ def trace(scene, o, d, key, sample, opts: TraceOptions, stream_ids=None):
 def compaction_applies(opts: TraceOptions, device) -> bool:
     """Dead-lane compaction needs depth > 1, no per-lane instrumentation
     (AOVs and ray logs need full-width lanes every bounce; the NaN check
-    reads every live lane) and the exact-culled sorted cast: "pallas", or
-    "auto" on the card, where it resolves to "pallas". "auto" on the CPU
-    ("brute" or "bvh"), "pallas_brute", "brute" and "bvh" run uncompacted,
-    as in the JAX package (integrator._compaction_applies)."""
+    reads every live lane), sort_rays, and the exact-culled sorted cast:
+    "pallas", or "auto" on the card, where it resolves to "pallas". "auto"
+    on the CPU ("brute" or "bvh"), "pallas_brute", "brute" and "bvh" run
+    uncompacted, as in the JAX package (integrator._compaction_applies)."""
     if (opts.depth <= 1 or opts.want_aux or opts.log_paths
-            or opts.check_nans):
+            or opts.check_nans or not opts.sort_rays):
         return False
     if opts.intersector == "pallas":
         return True
@@ -375,12 +397,14 @@ def compaction_applies(opts: TraceOptions, device) -> bool:
             and torch.device(device).type != "cpu")
 
 
-def first_bounce(scene, o, d, key, sample):
+def first_bounce(scene, o, d, key, sample, stream_ids=None,
+                 light_chunk: int = 256):
     """Bounce 0 of the compacted wavefront: the tiled full-width cast of the
     camera rays o, d [..., 3] and their shading, flattened into the lane
     state [Npad, 12] (o, d, throughput, radiance; Npad is the lane count
     rounded up to RB) with its alive mask [Npad]. Padding lanes are dead;
-    a lane's stream id is its flat image position."""
+    a lane draws with its stream id (stream_ids [...], by default its flat
+    position)."""
     has_lights = scene.light_p.shape[0] > 0
     batch_shape = tuple(o.shape[:-1])
     dev = o.device
@@ -391,8 +415,9 @@ def first_bounce(scene, o, d, key, sample):
     t, tri_idx = traverse.cast_rays(
         scene, o, d, intersector="pallas", sort=False
     )
-    stream_ids = torch.arange(n0, dtype=torch.int32,
-                              device=dev).reshape(batch_shape)
+    if stream_ids is None:
+        stream_ids = torch.arange(n0, dtype=torch.int32,
+                                  device=dev).reshape(batch_shape)
     uniforms = prng.uniforms(key, sample, 0, stream_ids, 6)
     alive = torch.ones(batch_shape, dtype=torch.bool, device=dev)
     throughput = torch.ones(batch_shape + (3,), dtype=torch.float32,
@@ -401,7 +426,7 @@ def first_bounce(scene, o, d, key, sample):
                            device=dev)
     o, d, throughput, radiance, alive = _shade_vertex(
         scene, o, d, t, tri_idx, alive, uniforms, has_lights,
-        throughput, radiance,
+        throughput, radiance, light_chunk,
     )[:5]
     state = torch.zeros((n0p, 12), dtype=torch.float32, device=dev)
     state[:n0, 0:3] = o.reshape(n0, 3)
@@ -426,8 +451,8 @@ def sort_lanes(state, alive, aabb8, n_super: int, budget: int):
     dev = state.device
     rb = pi.RB
     width = state.shape[0]
-    far_o = torch.tensor([BIG, 0.0, 0.0], dtype=torch.float32, device=dev)
-    unit_x = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float32, device=dev)
+    far_o = device_vector((BIG, 0.0, 0.0), device=dev)
+    unit_x = device_vector((1.0, 0.0, 0.0), device=dev)
     state[:, 0:3] = torch.where(alive[:, None], state[:, 0:3], far_o)
     state[:, 3:6] = torch.where(alive[:, None], state[:, 3:6], unit_x)
     s_width = max(rb, min(width, (int(budget) // rb) * rb))
@@ -451,7 +476,8 @@ def sort_lanes(state, alive, aabb8, n_super: int, budget: int):
     return state, perm, rays, words
 
 
-def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions):
+def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions,
+                     stream_ids):
     """Dead-lane-compacted wavefront (TraceOptions.lane_schedule).
 
       bounce 0   tiled full-width cast + shade (camera rays, image order)
@@ -463,7 +489,9 @@ def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions):
                  rebuilds image order.
 
     The JAX package moves the state through the sort as lax.sort payload
-    columns; here one permutation gathers a packed [N, 12] state row."""
+    columns; here one permutation gathers a packed [N, 12] state row, and
+    the stream ids [...] ride the same permutation (the JAX package
+    recomputes them from the lane id under its stream_base promise)."""
     has_lights = scene.light_p.shape[0] > 0
     batch_shape = tuple(o.shape[:-1])
     dev = o.device
@@ -474,14 +502,17 @@ def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions):
         n0 *= s
 
     # ---- bounce 0: full width, image order ----
-    state, alive = first_bounce(scene, o, d, key, sample)
+    state, alive = first_bounce(scene, o, d, key, sample, stream_ids,
+                                opts.light_chunk)
     n0p = state.shape[0]
-    rays = torch.tensor(n0, dtype=torch.int64, device=dev)
+    rays = torch.full((), n0, dtype=torch.int64, device=dev)
     alive_counts = [rays]
-    # A lane's stream id is its flat image position, which is also the lane
-    # id it carries through the sorts; padding lanes carry ids >= n0, which
-    # the merge drops.
+    # A lane's id is its flat position in the batch; padding lanes carry
+    # ids >= n0, which the merge drops. Stream ids are carried through the
+    # sorts.
     iota = torch.arange(n0p, dtype=torch.int32, device=dev)
+    stream = torch.zeros(n0p, dtype=torch.int32, device=dev)
+    stream[:n0] = stream_ids.reshape(n0)
     _g, n_super, aabb8 = traverse.exact_cull_layout(scene)
 
     retired_iota = []
@@ -498,6 +529,7 @@ def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions):
         overflow = overflow + torch.clamp(n_alive - s_width, min=0)
 
         iota = iota[perm]
+        stream = stream[perm][:s_width]
         # The tail is dead (or overflow, which poisons the render): its
         # radiance is final.
         retired_iota.append(iota[s_width:])
@@ -511,10 +543,10 @@ def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions):
         t, tri_idx = traverse.cast_presorted_rows(
             scene, rays_sorted, words=s_words
         )
-        uniforms = prng.uniforms(key, sample, b, iota, 6)
+        uniforms = prng.uniforms(key, sample, b, stream, 6)
         o2, d2, thr, rad, alive = _shade_vertex(
             scene, state[:, 0:3], state[:, 3:6], t, tri_idx, alive, uniforms,
-            has_lights, state[:, 6:9], state[:, 9:12],
+            has_lights, state[:, 6:9], state[:, 9:12], opts.light_chunk,
         )[:5]
         state = torch.cat([o2, d2, thr, rad], dim=1)
 

@@ -220,10 +220,11 @@ def light_sums_rows(light_rows, counts, lists, rays):
     out = torch.empty((npad,), dtype=torch.float32, device=dev)
     if npad == 0:
         return out
-    rc = cuda_build.load().rt_light_launch(
-        counts.data_ptr(), lists.data_ptr(), lists.shape[1],
-        rays.data_ptr(), npad, light_rows.data_ptr(),
-        light_rows.shape[0] // LEAF_L, out.data_ptr(), pi._stream_of(dev),
+    rc = pi._launch(
+        cuda_build.load().rt_light_launch, counts.data_ptr(),
+        lists.data_ptr(), lists.shape[1], rays.data_ptr(), npad,
+        light_rows.data_ptr(), light_rows.shape[0] // LEAF_L, out.data_ptr(),
+        device=dev,
     )
     if rc != 0:
         raise RuntimeError(f"light kernel launch failed: cudaError {rc}")

@@ -112,8 +112,13 @@ def _check(name, x, dtype, ndim, device):
         raise ValueError(f"{name} is on {x.device}, want {device}")
 
 
-def _stream_of(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def _launch(entry, *args, device):
+    """Call a kernel's launch entry with `args` and `device`'s current
+    stream, `device` made the current CUDA device for the call: the entries
+    set no device, and CUDA refuses a launch into another device's stream
+    (a mesh shard on cuda:1 while cuda:0 is current)."""
+    with torch.cuda.device(device):
+        return entry(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 # ---------------------------------------------------------------------------
@@ -199,9 +204,10 @@ def cluster_masks_rows(aabb8, rays, n_clusters: int | None = None,
     out = torch.empty((n_words, npad), dtype=torch.int32, device=dev)
     if npad == 0:
         return out
-    rc = cuda_build.load().rt_mask_launch(
-        rays.data_ptr(), aabb8.data_ptr(), out.data_ptr(),
-        npad, s_pad, n_words, n_bits, int(tmax_row), _stream_of(dev),
+    rc = _launch(
+        cuda_build.load().rt_mask_launch, rays.data_ptr(), aabb8.data_ptr(),
+        out.data_ptr(), npad, s_pad, n_words, n_bits, int(tmax_row),
+        device=dev,
     )
     if rc != 0:
         raise RuntimeError(f"mask kernel launch failed: cudaError {rc}")
@@ -337,9 +343,10 @@ def _sweep_launch(wrapper, entry, scene_tris, rays, counts=None,
         return out
     listed = (() if counts is None
               else (counts.data_ptr(), lists.data_ptr(), lists.shape[1]))
-    rc = getattr(cuda_build.load(), entry)(
-        *listed, rays.data_ptr(), npad, scene_tris.data_ptr(),
-        scene_tris.shape[0] // LEAF, out.data_ptr(), _stream_of(dev),
+    rc = _launch(
+        getattr(cuda_build.load(), entry), *listed, rays.data_ptr(), npad,
+        scene_tris.data_ptr(), scene_tris.shape[0] // LEAF, out.data_ptr(),
+        device=dev,
     )
     if rc != 0:
         raise RuntimeError(f"{entry} failed: cudaError {rc}")

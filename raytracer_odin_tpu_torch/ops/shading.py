@@ -22,6 +22,7 @@ from raytracer_odin_tpu_torch.ops import light_cull
 from raytracer_odin_tpu_torch.ops.geometry import RAY_EPS, intersect_triangle
 from raytracer_odin_tpu_torch.utils.math3d import (
     cross,
+    device_vector,
     dot,
     normalize,
     quat_conj,
@@ -140,7 +141,7 @@ def vndf_sample(n, omega, alpha, u1, u2):
     )
     lensq = torch.hypot(Vh[..., 0], Vh[..., 1])
     safe_len = torch.where(lensq == 0, 1.0, lensq)
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=n.dtype, device=n.device)
+    ex = device_vector((1.0, 0.0, 0.0), n.dtype, n.device)
     T1 = torch.where(
         (lensq == 0)[..., None],
         ex.expand(Vh.shape),
@@ -223,18 +224,19 @@ def sample_direction(scene, mat_pos, mat_normal, mat_roughness, in_d,
 
 
 def mixture_pdf(scene, mat_pos, mat_normal, mat_roughness, in_d, out_d,
-                has_lights: bool):
+                has_lights: bool, light_chunk: int = 256):
     """(cos_pdf + light_pdf + vndf_pdf * (1|2)) / 3 (shading.odin:153-162).
-    The light pdf is the dense sum below light_cull.LIGHT_CULL_MIN lights
-    and the culled sum (K5) from there on, on any device (the JAX package
-    takes the dense sum whenever its backend is the CPU)."""
+    The light pdf is the dense sum (`light_chunk` lights a step) below
+    light_cull.LIGHT_CULL_MIN lights and the culled sum (K5) from there on,
+    on any device (the JAX package takes the dense sum whenever its backend
+    is the CPU)."""
     p_cos = cosine_weighted_pdf(mat_normal, out_d)
     p_vndf = vndf_pdf(mat_normal, -in_d, sq(mat_roughness), out_d)
     if has_lights:
         if scene.light_p.shape[0] >= light_cull.LIGHT_CULL_MIN:
             p_light = light_cull.light_pdf_sum_culled(scene, mat_pos, out_d)
         else:
-            p_light = light_pdf_sum(scene, mat_pos, out_d)
+            p_light = light_pdf_sum(scene, mat_pos, out_d, chunk=light_chunk)
         return (p_cos + p_light + p_vndf) / 3.0
     return (p_cos + p_vndf * 2.0) / 3.0
 

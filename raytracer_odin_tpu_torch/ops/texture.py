@@ -15,6 +15,8 @@ import math
 import numpy as np
 import torch
 
+from raytracer_odin_tpu_torch.utils.math3d import device_vector
+
 
 def build_atlas(textures) -> dict:
     """Pack decoded HostTextures into the quad-packed pool (numpy):
@@ -85,7 +87,7 @@ def sample(scene, tex_id, uv, srgb: bool = False,
     tx = t[..., 0:1]
     out = (p00 + (p01 - p00) * ty) * (1 - tx) + (p10 + (p11 - p10) * ty) * tx
 
-    default_arr = torch.tensor(default, dtype=out.dtype, device=out.device)
+    default_arr = device_vector(default, out.dtype, out.device)
     return torch.where((tex_id >= 0)[..., None], out, default_arr)
 
 

@@ -40,6 +40,7 @@ from raytracer_odin_tpu_torch.ops.geometry import (
     intersect_aabb,
     intersect_triangle,
 )
+from raytracer_odin_tpu_torch.utils.math3d import device_vector
 
 # Exact per-ray culling works on at most this many mask bits.
 MAX_EXACT_CLUSTERS = 256
@@ -319,7 +320,7 @@ def sort_exact(scene, o2, d2, alive_f, aabb8, n_super: int):
         dim=0,
     )
     far = scene_hi + 1000.0
-    unit_x = torch.tensor([1.0, 0.0, 0.0], dtype=d2.dtype, device=dev)
+    unit_x = device_vector((1.0, 0.0, 0.0), d2.dtype, dev)
     o2 = torch.where(alive_f[:, None], o2, far)
     d2 = torch.where(alive_f[:, None], d2, unit_x)
     n = o2.shape[0]
@@ -343,21 +344,44 @@ def sort_exact(scene, o2, d2, alive_f, aabb8, n_super: int):
     return rays2, words, perm
 
 
+def sort_coherent(scene, o2, d2, alive_f):
+    """The sorted branch without masks: dead lanes become far +x rays and
+    the lanes are sorted by culling.coherence_keys. o2 is RAY_EPS-offset,
+    [N, 3]. Returns (rays2 [8, Npad] sorted kernel rows, perm [N] int64
+    source lane of each sorted lane)."""
+    dev = o2.device
+    scene_lo = torch.amin(scene.cluster_lo, dim=0)
+    scene_hi = torch.amax(
+        torch.where(scene.cluster_hi > -BIG, scene.cluster_hi, scene_lo),
+        dim=0,
+    )
+    unit_x = device_vector((1.0, 0.0, 0.0), d2.dtype, dev)
+    o2 = torch.where(alive_f[:, None], o2, scene_hi + 1000.0)
+    d2 = torch.where(alive_f[:, None], d2, unit_x)
+    keys = culling.coherence_keys(o2, d2, alive_f, scene_lo, scene_hi)
+    perm = torch.sort(keys, stable=True).indices
+    rays2, _, _ = pi.pack_rays(o2[perm], d2[perm])
+    return rays2, perm
+
+
 def cast_rays_pallas(scene, o, d, culled: bool = True, sort: bool = False,
                      alive=None):
     """Cast through the kernels (cast_ray semantics).
 
     culled=True: exact culling through K1 and the list sweep (K2, or K4
     for streamed scenes). culled=False: every cluster through K3, without
-    masks (sort must be False).
+    masks.
     sort=False: an [H, W] batch goes through the (16 x 32) image-tile order
     (camera rays are coherent), any other batch in lane order.
-    sort=True: lanes are re-bucketed by the lexicographic (dead|octant,
-    mask) sort before the sweep and the results scattered back; dead lanes
-    (alive=False) come back as misses. Returns (t, idx) in the batch shape
-    (the JAX package's zero bu/bv are not carried)."""
-    if sort and not culled:
-        raise ValueError("the brute sweep (culled=False) takes no sort")
+    sort=True: lanes are re-bucketed before the sweep and the results
+    scattered back; dead lanes (alive=False) come back as misses. Culled,
+    the sort is lexicographic by (dead|octant, mask words); unculled, by
+    culling.coherence_keys (dead|octant|origin cell|direction cell), as in
+    the JAX package. K3 tests every cluster, so the unculled sorted cast
+    equals the unsorted one lane for lane (the JAX package's scatters its
+    results back by the wrong permutation: ROADMAP.md queue C). Returns
+    (t, idx) in the batch shape (the JAX package's zero bu/bv are not
+    carried)."""
     o = o + d * RAY_EPS
     batch_shape = tuple(o.shape[:-1])
     if culled:
@@ -370,8 +394,11 @@ def cast_rays_pallas(scene, o, d, culled: bool = True, sort: bool = False,
         d2 = d.reshape(-1, 3)
         alive_f = (torch.ones(o2.shape[0], dtype=torch.bool, device=o.device)
                    if alive is None else alive.reshape(-1))
-        rays2, words, perm = sort_exact(scene, o2, d2, alive_f, aabb8,
-                                        n_super)
+        if culled:
+            rays2, words, perm = sort_exact(scene, o2, d2, alive_f, aabb8,
+                                            n_super)
+        else:
+            rays2, perm = sort_coherent(scene, o2, d2, alive_f)
         n = o2.shape[0]
     else:
         tiled = len(batch_shape) == 2

@@ -13,6 +13,18 @@ def sq(x):
     return x * x
 
 
+def device_vector(values, dtype=torch.float32, device="cpu"):
+    """A small constant vector written on `device` by fill kernels.
+    torch.tensor(values, device=<a card>) copies from pageable host memory,
+    which waits for the card's queue to drain: inside a render step that
+    stalls the host's enqueue (chip_smoke.py lists such syncs)."""
+    out = torch.zeros(len(values), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        if v:
+            out[i].fill_(v)
+    return out
+
+
 def dot(a, b):
     return torch.sum(a * b, dim=-1)
 
@@ -69,8 +81,8 @@ def quat_from_z_to(n):
     qy = n[..., 0] / (2.0 * safe_w)
     qz = torch.zeros_like(w)
     q_main = torch.stack([qx, qy, qz, w], dim=-1)
-    q_flip = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=n.dtype,
-                          device=n.device).expand_as(q_main)
+    q_flip = device_vector((1.0, 0.0, 0.0, 0.0), n.dtype,
+                           n.device).expand_as(q_main)
     return torch.where((w > 0)[..., None], q_main, q_flip)
 
 

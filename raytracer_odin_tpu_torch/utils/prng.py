@@ -30,13 +30,14 @@ def key_from_seed(seed: int) -> tuple:
 
 
 def _i32(x, device) -> torch.Tensor:
-    """A uint32 counter (python int or integer tensor) as int32 bits."""
+    """A uint32 counter (python int or integer tensor) as int32 bits (a
+    python int is filled in on the device: no copy from the host)."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.int32)
     x = int(x) & _M32
     if x >= 1 << 31:
         x -= 1 << 32
-    return torch.tensor(x, dtype=torch.int32, device=device)
+    return torch.full((), x, dtype=torch.int32, device=device)
 
 
 def _srl(x, k: int):

@@ -1,6 +1,7 @@
 """The port's command-line driver, run in process on the CPU
 (`cli.main(argv, device="cpu")`; mirrors tests/test_cli.py:35-117), the
-flags it does not port yet, its debug flags (--debug with --layer,
+mesh, pool and refill flags against the JAX CLI's, its option records
+against the JAX package's, its debug flags (--debug with --layer,
 --preview-file, --debug-nans), its output against the JAX package's CLI
 from the same argv, and its numpy oracle against the JAX package's.
 
@@ -120,9 +121,71 @@ def test_profile_dir(cube_gltf, tmp_path):
     (["--pool"], "item 2"),
     (["--compact", "refill"], "item 2"),
 ])
-def test_unported_flags_raise(cube_gltf, flags, item):
-    with pytest.raises(NotImplementedError, match=f"queue A {item}"):
-        run_cli(cube_gltf, *SMALL, *flags, "--quiet")
+def test_unported_flags_raise(cube_gltf, tmp_path, monkeypatch, flags,
+                              item):
+    """The flags the port once refused (ROADMAP.md queue A `item`, now
+    ported) run, and write the JAX CLI's image from the same argv within
+    one 8-bit level. The mesh flags render on [cpu] * 2 in the port and on
+    the JAX CLI's virtual devices (--spp-devices 2 makes it a 4 x 2 mesh:
+    the same samples, summed in another order); --compact refill runs
+    through "pallas" (on the CPU "auto" means the batched step in both)."""
+    monkeypatch.setattr(compile_cache, "enable", lambda *a, **k: None)
+    argv = [*SMALL, *flags, "--seed", "2", "--quiet"]
+    if flags == ["--compact", "refill"]:
+        argv += ["--intersector", "pallas"]
+    jout, tout = tmp_path / "j.png", tmp_path / "t.png"
+    assert jcli.main([str(cube_gltf), str(jout), *argv]) == 0
+    assert run_cli(cube_gltf, tout, *argv) == 0
+    want = np.round(jimages.load_image(jout).data * 255)
+    got = np.round(images.load_image(tout).data * 255)
+    assert got.shape == want.shape == (16, 16, 3)
+    assert np.abs(got - want).max() <= 1
+
+
+def test_devices_above_the_count_raise(cube_gltf, monkeypatch):
+    """On the card, a mesh larger than the cards there are raises, naming
+    the count; --devices 0 means every card, as in the JAX CLI."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="needs 2 cards; 1 CUDA device"):
+        cli.main([str(cube_gltf), *SMALL, "--devices", "2", "--quiet"])
+    with pytest.raises(ValueError, match="needs 2 cards; 1 CUDA device"):
+        cli.main([str(cube_gltf), *SMALL, "--spp-devices", "2"])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    n_tile, n_spp, devs = cli.mesh_devices(0, 1, "cuda")
+    assert (n_tile, n_spp) == (4, 1)
+    assert devs == [torch.device("cuda", i) for i in range(4)]
+    assert cli.mesh_devices(0, 2, "cuda")[:2] == (2, 2)
+    assert cli.mesh_devices(0, 1, "cpu") == (1, 1, [torch.device("cpu")])
+    assert cli.mesh_devices(3, 1, "cuda:0")[2] == [torch.device("cuda",
+                                                                0)] * 3
+
+
+def test_option_records_match_jax():
+    """RenderConfig and TraceOptions carry every field of the JAX
+    package's, in its order, with its defaults, but for RenderConfig's
+    debug_features (False in the port: ROADMAP.md queue C item 6) and
+    TraceOptions' check_nans (the port's --debug-nans, last)."""
+    import dataclasses
+
+    from raytracer_odin_tpu.config import RenderConfig as JRenderConfig
+    from raytracer_odin_tpu.ops.integrator import TraceOptions as JOpts
+    from raytracer_odin_tpu_torch.config import RenderConfig
+    from raytracer_odin_tpu_torch.ops.integrator import TraceOptions
+
+    jf = {f.name: f.default for f in dataclasses.fields(JRenderConfig)}
+    tf = {f.name: f.default for f in dataclasses.fields(RenderConfig)}
+    assert list(tf) == list(jf)
+    assert {k: v for k, v in tf.items() if k != "debug_features"} == {
+        k: v for k, v in jf.items() if k != "debug_features"}
+    assert jf["debug_features"] is True and tf["debug_features"] is False
+    assert list(TraceOptions._fields) == list(JOpts._fields) + [
+        "check_nans"]
+    assert {k: v for k, v in TraceOptions._field_defaults.items()
+            if k != "check_nans"} == JOpts._field_defaults
+    with pytest.raises(ValueError, match="f32"):
+        RenderConfig(precision="bf16")
 
 
 def test_accepted_parity_flags(cube_gltf, tmp_path):

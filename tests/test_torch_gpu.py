@@ -397,3 +397,160 @@ def test_light_kernel_refuses_misaligned_rows(cuda):
     with pytest.raises(ValueError):
         light_cull.light_sums_rows(shifted, counts, lists, rays)
     assert light_cull.light_sums_rows.launches == before
+
+
+def _cornell_on(cuda, tmp_path):
+    from raytracer_odin_tpu_torch.io import gltf
+    from raytracer_odin_tpu_torch.models import assets, build
+
+    host = gltf.read_gltf(assets.generate("cornell", tmp_path)["gltf"])
+    return host, build.finish_scene(host, device=cuda)
+
+
+@pytest.mark.gpu
+def test_pool_wave_kernels_bit_equal(cuda, monkeypatch, tmp_path):
+    """K1 and K2 on a pool wave's batch (ops/wavefront.py through
+    "pallas": lanes of different bounces and samples, sorted by their masks,
+    dead lanes last), recorded as the route builds them, each bit-equal to
+    its plain version."""
+    from raytracer_odin_tpu_torch.config import RenderConfig
+    from raytracer_odin_tpu_torch.render import accum, runtime
+    from raytracer_odin_tpu_torch.utils import prng
+
+    host, sc = _cornell_on(cuda, tmp_path)
+    packed, swept = [], []
+    real_pack, real_sweep = pi.pack_rays, traverse._sweep_exact
+
+    def pack(o, d):
+        out = real_pack(o, d)
+        packed.append(out[0].clone())
+        return out
+
+    def sweep(scene, words, rays, g, n_super, cap=256):
+        swept.append((words.clone(), rays.clone()))
+        return real_sweep(scene, words, rays, g, n_super, cap)
+
+    monkeypatch.setattr(pi, "pack_rays", pack)
+    monkeypatch.setattr(traverse, "_sweep_exact", sweep)
+    cfg = RenderConfig(width=64, height=64, ray_depth=4, samples=2,
+                       samples_per_step=2, intersector="pallas",
+                       wavefront_pool=True, pool_fraction=0.5)
+    step = runtime.make_pool_render_step(cfg, host.cam.fov_x, device=cuda)
+    stats = accum.init_stats(1, 64, 64, device=cuda)
+    step(sc, stats, prng.key_from_seed(0), 0)
+    monkeypatch.undo()
+    assert step.waves[0] == len(swept) == len(packed) > 4
+    _, n_super, aabb8 = traverse.exact_cull_layout(sc)
+    k = len(swept) // 2  # a wave of the steady state
+    words, rays = swept[k]
+    got_k1 = pi.cluster_masks_rows(aabb8, packed[k], n_super)
+    assert torch.equal(got_k1,
+                       pi._cluster_masks_plain(aabb8, packed[k], n_super))
+    counts, lists = traverse.exact_lists(words, n_super)
+    got = pi.intersect_culled_rows(sc.ptri, counts, lists, rays)
+    want = pi._culled_plain(counts, lists, rays, sc.ptri)
+    torch.cuda.synchronize()
+    assert int((want[1] >= 0).sum()) > 100
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _mesh_matches_single(cuda, tmp_path, devices):
+    """A 2 x 1 tile mesh over `devices`, compacted with each tile's own
+    budgets, is bit-identical to the single-card compacted render on
+    `cuda`."""
+    from raytracer_odin_tpu_torch.config import RenderConfig
+    from raytracer_odin_tpu_torch.parallel import mesh as pmesh
+    from raytracer_odin_tpu_torch.render import accum, runtime
+
+    host, sc = _cornell_on(cuda, tmp_path)
+    cfg = RenderConfig(width=96, height=64, ray_depth=4, samples=4,
+                       samples_per_step=2, intersector="pallas",
+                       compact="auto")
+    fov = host.cam.fov_x
+    single = runtime.render_scene(sc, cfg, fov, device=cuda)
+    mesh = pmesh.make_mesh(n_tile=2, devices=devices)
+    rs = pmesh.replicate_scene(sc, mesh)
+    step = pmesh.make_sharded_render_step(cfg, fov, mesh, rs)
+    res = runtime.render_scene(
+        rs, cfg, fov, device=cuda, step_fn=step,
+        make_stats=lambda: pmesh.shard_stats(
+            accum.init_stats(1, 64, 96, device=cuda), mesh))
+    assert res.overflow == 0 and step.lane_schedule is not None
+    assert res.rays_cast == single.rays_cast
+    for f in ("first", "last", "total", "total_sq", "count"):
+        assert torch.equal(getattr(res.stats, f), getattr(single.stats, f)), f
+
+
+def _cards(n: int) -> list:
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices ({torch.cuda.device_count()} "
+                    "here)")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+@pytest.mark.gpu
+def test_two_shard_mesh_bit_equal(cuda, tmp_path):
+    """A 2 x 1 tile mesh of cuda:0 twice is bit-identical to the
+    single-card compacted render."""
+    _mesh_matches_single(cuda, tmp_path, [cuda, cuda])
+
+
+@pytest.mark.gpu
+def test_two_card_mesh_bit_equal(cuda, tmp_path):
+    """The 2 x 1 tile mesh over cuda:0 and cuda:1: tile 1's kernels launch
+    on cuda:1 while cuda:0 is the current device, and the frame is
+    bit-identical to the single card's."""
+    _mesh_matches_single(cuda, tmp_path, _cards(2))
+
+
+@pytest.mark.gpu
+def test_kernels_launch_on_any_card(cuda):
+    """K1 and K2 on every card, each launched while cuda:0 is the current
+    device, equal their plain versions bit for bit."""
+    rng = np.random.default_rng(12)
+    n_clusters = 111
+    lo = rng.uniform(-8, 8, (n_clusters, 3)).astype(np.float32)
+    hi = lo + rng.uniform(0.2, 3, (n_clusters, 3)).astype(np.float32)
+    aabb = np.zeros((128, 8), np.float32)
+    aabb[:, 0:3], aabb[:, 3:6] = pi.BIG, -pi.BIG
+    aabb[:n_clusters, 0:3], aabb[:n_clusters, 3:6] = lo, hi
+    tris = _tris(rng, 3000)
+    nc = tris.shape[0] // pi.LEAF
+    rays = _rays(rng, 8192, tris)
+    nsb = rays.shape[1] // pi.RB_SUB
+    counts = rng.integers(0, 40, nsb).astype(np.int32)
+    lists = np.stack([rng.permutation(nc) for _ in range(nsb)]).astype(
+        np.int32)
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        r, a = rays.to(dev), torch.from_numpy(aabb).to(dev)
+        t = torch.from_numpy(tris).to(dev)
+        c = torch.from_numpy(counts).to(dev)
+        lst = torch.from_numpy(lists).to(dev)
+        with torch.cuda.device(cuda):
+            words = pi.cluster_masks_rows(a, r, n_clusters)
+            hits = pi.intersect_culled_rows(t, c, lst, r)
+        torch.cuda.synchronize(dev)
+        assert torch.equal(words, pi._cluster_masks_plain(a, r, n_clusters))
+        want = pi._culled_plain(c, lst, r, t)
+        assert torch.equal(hits.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_cli_every_card(cuda, tmp_path):
+    """--devices 0 renders over every card (a tile mesh): its PNG is the
+    bytes of --devices 1's."""
+    from raytracer_odin_tpu_torch import cli
+    from raytracer_odin_tpu_torch.models import assets
+
+    _cards(2)
+    scene = assets.generate("cornell", tmp_path)["gltf"]
+    pngs = []
+    for n in ("1", "0"):
+        out = tmp_path / f"devices{n}.png"
+        rc = cli.main([str(scene), str(out), "--width", "64", "--height",
+                       "40", "--ray-depth", "3", "--num-samples", "2",
+                       "--intersector", "pallas", "--devices", n, "--quiet"])
+        assert rc == 0
+        pngs.append(out.read_bytes())
+    assert pngs[0] == pngs[1]

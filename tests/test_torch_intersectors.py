@@ -282,3 +282,58 @@ def test_render_config_brute_options(tmp_path):
                        render(intersector="brute"))
     assert torch.equal(render(intersector="auto", brute_max_tris=0),
                        render(intersector="bvh"))
+
+
+def test_coherence_keys_match_jax():
+    """culling.coherence_keys gives the JAX package's keys bit for bit,
+    dead lanes included."""
+    from raytracer_odin_tpu.ops import culling as jcull
+    from raytracer_odin_tpu_torch.ops import culling as tcull
+
+    rng = np.random.default_rng(12)
+    o = rng.uniform(-6, 6, (4000, 3)).astype(np.float32)
+    d = rng.normal(size=(4000, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    alive = rng.uniform(size=4000) < 0.8
+    lo = np.float32([-4, -5, -3])
+    hi = np.float32([4, 3, 5])
+    want = jcull.coherence_keys(jnp.asarray(o), jnp.asarray(d),
+                                jnp.asarray(alive), jnp.asarray(lo),
+                                jnp.asarray(hi))
+    got = tcull.coherence_keys(_t(o), _t(d), _t(alive), _t(lo), _t(hi))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_brute_sorted_cast():
+    """cast_rays_pallas(culled=False, sort=True): K3 over the lanes sorted
+    by the coherence keys, scattered back. Every cluster is tested for
+    every ray, so each live lane's hit is the unsorted cast's (and the JAX
+    package's unsorted cast's), and dead lanes miss. The JAX package's
+    sorted unculled cast scatters its results back by the wrong
+    permutation (ROADMAP.md queue C): its lanes get other lanes' hits."""
+    rng = np.random.default_rng(13)
+    js, ts = _scene_pair(rng, 300)
+    o = rng.uniform(-8, 8, (1500, 3)).astype(np.float32)
+    d = rng.normal(size=(1500, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    alive = rng.uniform(size=1500) < 0.7
+    before = tpi.intersect_brute_rows.launches
+    ts_t, ts_i = ttrav.cast_rays_pallas(ts, _t(o), _t(d), culled=False,
+                                        sort=True, alive=_t(alive))
+    tu_t, tu_i = ttrav.cast_rays_pallas(ts, _t(o), _t(d), culled=False)
+    assert tpi.intersect_brute_rows.launches == before
+    assert int((tu_i >= 0).sum()) > 100
+    live = _t(alive)
+    assert torch.equal(ts_i[live], tu_i[live])
+    assert torch.equal(ts_t[live], tu_t[live])
+    assert bool((ts_i[~live] < 0).all())
+    jt, ji, _, _ = jtrav.cast_rays_pallas(js, jnp.asarray(o), jnp.asarray(d),
+                                          culled=False)
+    assert np.array_equal(np.asarray(ji), tu_i.numpy())
+    assert np.allclose(np.asarray(jt), tu_t.numpy(), rtol=T_RTOL,
+                       atol=T_ATOL)
+    _, jsi, _, _ = jtrav.cast_rays_pallas(
+        js, jnp.asarray(o), jnp.asarray(d), culled=False, sort=True,
+        alive=jnp.asarray(alive))
+    assert not np.array_equal(np.asarray(jsi)[alive], np.asarray(ji)[alive])
