@@ -116,13 +116,42 @@ wall time:
                  rays and live lanes within those pixels' paths, a second
                  run bit-equal, K1 and K2 on a wave of the steady state
                  against their plain versions
- 15. with --profile: one more step of each path under torch.profiler,
-     device time by kernel class and the device's busy share
- 16. the kernels JSON line (K1-K5 and K1 with its tmax row; each with its
+ 15. cols        the demo through the columnar trace (integrator.COLS = 1),
+                 calibration plus STEPS steps: overflow 0, K1 and K2 8 a
+                 step and 8 in calibration, K1 and K2 against their plain
+                 versions on the columnar route's sorted bounce-1 batch,
+                 the frame against the row-form demo frame at the
+                 glossy-scene gate's mean and pass fraction, with the
+                 values that differ and the pixels beyond its MAX_ABS
+                 counted and the MAX_FLIPS largest of them explained
+                 (frame_vs, lane_flips), Mrays/s, step time, host syncs
+                 and peak memory beside the demo's
+ 16. cols citynight  citynight through the columnar trace, PATH_STEPS
+                 steps: K1, K2 and K5 8 a step and 8 in calibration, K5
+                 against its plain version on the columnar bounce-0 shading
+                 batch with the culled pdf against the dense sum there
+                 (edge_flips), the frame against the row-form citynight
+                 frame as in cols
+ 17. sort_every  the demo with integrator.SORT_EVERY = 2 (bounces 2, 4, 6
+                 cast unsorted at the previous width, dead lanes as far
+                 rays among the live ones): overflow 0, K1 and K2 8 a step,
+                 K1 and K2 against their plain versions on bounce 2's batch
+                 with its mean list, the frame equal to the sorted route's
+                 but for the pixels grouping_flips explains, the lanes
+                 whose path differs without changing their pixel found
+                 (live_lane_ids) and explained alike, Mrays/s beside it
+ 18. with --profile: one more step of each path under torch.profiler,
+     device time by kernel class, kernels a step and the device's busy
+     share
+ 19. the kernels JSON line (K1-K5 and K1 with its tmax row; each with its
      design and registers, its SASS counts, SM clock and issue floors, K2-K5
      with their warp-vote rates; K1 and K2 with their checks on the mesh
-     shard's, the pool wave's and the refill iteration's batches), then the
-     {"ok": true, ...} line.
+     shard's, the pool wave's, the refill iteration's, the columnar
+     bounce-1 and the skip-sort bounce's batches; K5 on the columnar
+     citynight batch), then the {"ok": true, ...} line.
+
+The smoke refuses to start with RT_TPU_TWO_PHASE, RT_TPU_COLS or
+RT_TPU_SORT_EVERY set: the paths set those switches themselves.
 
 The check phase renders the four golden images of tests/golden/ through
 "pallas" (cube and cornell at rtol 1e-3, atol 1e-4; the glossy textured and
@@ -145,6 +174,7 @@ repository root:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -966,7 +996,8 @@ def edge_flips(lc, scene, o, d, culled, dense, limit=4096) -> int:
 
 def dense_pdf_check(lc, scene, o, d, dev, reps):
     """The dense light pdf (shading.light_pdf_sum, the path below
-    LIGHT_CULL_MIN lights) on a full-frame shading batch, in its lane steps
+    light_cull.threshold() lights) on a full-frame shading batch, in its
+    lane steps
     (shading.pdf_lanes) and all lanes at once: each one's time and peak
     device memory above what was allocated before it, the two bit-equal;
     the culled pdf (light lists and K5) on the same lanes: its time, K5's
@@ -1258,7 +1289,8 @@ def profile_step(rt, stats, scene, cfg, fov_x, schedule, dev, name,
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5} "
               f"{e.key[:110]}", flush=True)
     busy = device_us / 1e6 / wall if wall > 0 else 0.0
-    print(f"  traced step wall {wall * 1e3:.3f} ms; device time "
+    print(f"  traced step wall {wall * 1e3:.3f} ms; "
+          f"{sum(c for _, c in buckets.values())} device kernels; device time "
           f"{device_us / 1e3:.3f} ms ("
           + ("not measured on the CPU" if dev.type != "cuda"
              else f"device busy share {busy:.3f}") + ")", flush=True)
@@ -1307,9 +1339,11 @@ def main(argv=None) -> int:
     from raytracer_odin_tpu_torch.render import runtime as rt
     from raytracer_odin_tpu_torch.utils import prng
 
-    if trav.TWO_PHASE_K:
-        raise AssertionError("run without RT_TPU_TWO_PHASE: the paths set "
-                             "two-phase culling themselves")
+    if trav.TWO_PHASE_K or integ.COLS or integ.SORT_EVERY != 1:
+        raise AssertionError("run without RT_TPU_TWO_PHASE, RT_TPU_COLS and "
+                             "RT_TPU_SORT_EVERY: the paths set two-phase "
+                             "culling, the columnar trace and the re-sort "
+                             "cadence themselves")
 
     ph = Phases()
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -1401,6 +1435,9 @@ def main(argv=None) -> int:
     # 7. the paths of the second slice
     city24 = Path(scene_dir) / "city24.gltf"
     paths = {}
+    # each path's frame (the sum of its samples), which the columnar
+    # route's frame is held against
+    frames = {}
     for name, intersector in (("citynight", "pallas"), ("city", "pallas"),
                               ("city24", "pallas"),
                               ("brute", "pallas_brute")):
@@ -1439,7 +1476,7 @@ def main(argv=None) -> int:
                     pi, trav, pscene, pk[f"words{b}"], pk[f"rays{b}"], g_,
                     n_super_, dev, reps, slice_,
                     clock=pscene.stream and b == 1)
-            if pscene.num_lights >= lc.LIGHT_CULL_MIN:
+            if pscene.num_lights >= lc.threshold():
                 checks["K5 bounce 0"] = measure_k5(
                     lc, pscene, pk["shade_o"], pk["shade_d"], dev, reps,
                     slice_blocks, clock=True)
@@ -1457,7 +1494,7 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{name}: no lane schedule")
             sweep = "K4" if pscene.stream else "K2"
             want = {"K1": DEPTH, sweep: DEPTH}
-            if pscene.num_lights >= lc.LIGHT_CULL_MIN:
+            if pscene.num_lights >= lc.threshold():
                 want["K5"] = DEPTH
             check_launches(name, r, want, want, rehearsal)
         else:
@@ -1465,9 +1502,10 @@ def main(argv=None) -> int:
                 raise AssertionError("brute: compacted")
             check_launches(name, r, {"K3": DEPTH}, {}, rehearsal)
         mean = check_frame(pres, h, w)
+        frames[name] = pres.stats.total[0].cpu().clone()
         output.save_png(pres.stats, OUT_DIR / f"{name}.png")
         if intersector == "pallas" and (pscene.num_lights
-                                        >= lc.LIGHT_CULL_MIN):
+                                        >= lc.threshold()):
             # K5 on the second bounce's light pdf inputs (the sorted,
             # compacted batch) of one more step
             step = rt.make_render_step(pcfg, pfov,
@@ -1501,7 +1539,7 @@ def main(argv=None) -> int:
         if name == "brute":
             info["golden"] = golden_check(scene_dir, dev, GOLDEN[0],
                                           "pallas_brute")
-        paths[name] = dict(info, checks=checks, mrays=r["mrays"],
+        paths[name] = dict(info, checks=checks, mrays=r["mrays"], fov_x=pfov,
                            launches=r["launches"], per_step=r["per_step"],
                            calibration=r["calibration"],
                            peak_gib=r["peak_gib"], image_mean=mean)
@@ -1509,14 +1547,14 @@ def main(argv=None) -> int:
         ph.done(f"path {name}", s, f"{r['mrays']:.3f} Mrays/s; "
                 + json.dumps(info))
 
-    # 7b. the dense light pdf below LIGHT_CULL_MIN lights: citynight with
+    # 7b. the dense light pdf below lc.threshold() lights: citynight with
     # one window a tower (288 lights), its full-frame bounce-0 batch
     s = time.perf_counter()
     night1 = Path(scene_dir) / "citynight1.gltf"
     assets.make_citynight_scene(night1, windows_per_tower=1)
     nhost = gltf.read_gltf(str(night1))
     nscene = build.finish_scene(nhost, device=dev)
-    if nscene.num_lights >= lc.LIGHT_CULL_MIN:
+    if nscene.num_lights >= lc.threshold():
         raise AssertionError(f"citynight1 has {nscene.num_lights} lights")
     ncfg = cfg.replace(samples=1)
     no, nd = rt.camera_rays(nscene, prng.key_from_seed(ncfg.seed), 0,
@@ -1592,6 +1630,35 @@ def main(argv=None) -> int:
             f"{paths['pool']['step_ms']:.3f} ms, waves "
             f"{paths['pool']['waves']}")
 
+    # 15-17. the columnar trace on the demo and on citynight, and the
+    # re-sort cadence
+    s = time.perf_counter()
+    paths["cols"] = cols_path(rt, integ, trav, pi, scene, cfg, fov_x, dev,
+                              counters, reps, card, demo, kb["g"],
+                              args.profile)
+    ph.done("path cols", s, f"{paths['cols']['mrays']:.3f} Mrays/s, step "
+            f"{paths['cols']['step_ms']:.3f} ms (row-form demo "
+            f"{demo['mrays']:.3f} Mrays/s, step "
+            f"{paths['cols']['demo_step_ms']:.3f} ms; {card})")
+    s = time.perf_counter()
+    night = build.finish_scene(gltf.read_gltf(
+        assets.generate("citynight", scene_dir)["gltf"]), device=dev)
+    paths["cols citynight"] = cols_citynight_path(
+        rt, integ, trav, lc, night, cfg.replace(samples=path_steps),
+        paths["citynight"]["fov_x"], dev, counters, reps, card,
+        frames["citynight"], paths["citynight"]["mrays"], args.profile)
+    del night
+    ph.done("path cols citynight", s,
+            f"{paths['cols citynight']['mrays']:.3f} Mrays/s (row form "
+            f"{paths['citynight']['mrays']:.3f}; {card})")
+    s = time.perf_counter()
+    paths["sort_every"] = sort_every_path(rt, integ, trav, pi, scene, cfg,
+                                          fov_x, dev, counters, reps, card,
+                                          demo, kb["g"], args.profile)
+    ph.done("path sort_every", s,
+            f"{paths['sort_every']['mrays']:.3f} Mrays/s (sorted every "
+            f"bounce {demo['mrays']:.3f}; {card})")
+
     if args.profile:
         s = time.perf_counter()
         profile_step(rt, res.stats, scene, cfg, fov_x,
@@ -1658,7 +1725,9 @@ def main(argv=None) -> int:
                "debug_bounce1": paths["debug"]["k1"],
                "mesh_shard_bounce1": paths["mesh"]["k1"],
                "pool_wave": paths["pool"]["k1"],
-               "refill_iteration": paths["refill"]["k1"]}),
+               "refill_iteration": paths["refill"]["k1"],
+               "cols_bounce1": paths["cols"]["k1"],
+               "sort_every_skip_bounce": paths["sort_every"]["k1"]}),
         # K1 with its tmax row: the demo's sorted bounce-1 batch with
         # phase A's t in row 6, on the twophase path
         entry("K1 cluster_masks_rows tmax_row", "K1 tmax",
@@ -1681,7 +1750,9 @@ def main(argv=None) -> int:
                "debug_bounce1": paths["debug"]["k2"],
                "mesh_shard_bounce1": paths["mesh"]["k2"],
                "pool_wave": paths["pool"]["k2"],
-               "refill_iteration": paths["refill"]["k2"]}),
+               "refill_iteration": paths["refill"]["k2"],
+               "cols_bounce1": paths["cols"]["k2"],
+               "sort_every_skip_bounce": paths["sort_every"]["k2"]}),
         # K3: the brute path's bounce-0 camera rays (every bounce sweeps
         # every cluster, uncompacted)
         entry("K3 intersect_brute_rows", "K3",
@@ -1717,7 +1788,9 @@ def main(argv=None) -> int:
                "launches_in_calibration":
                    paths["citynight"]["calibration"]["K5"],
                "rays": k5_b0["rays"], "mean_list": k5_b0["mean_list"],
-               "bounce1": k5_b1, "dense_pdf": dense_pdf}),
+               "bounce1": k5_b1, "dense_pdf": dense_pdf,
+               "cols_citynight": paths["cols citynight"]["k5"],
+               "launches_by_path": by_path("K5")}),
     ]
     summary = {p: {k: v[k] for k in ("triangles", "clusters", "lights", "g",
                                      "streamed", "mrays", "peak_gib")}
@@ -2342,7 +2415,8 @@ def same_stats(a, b, name, tol=None):
 MAX_FLIPS = 16
 
 
-def grouping_flips(rt, integ, scene, cfg, fov_x, pixels, n_samples):
+def grouping_flips(rt, integ, scene, cfg, fov_x, pixels, n_samples,
+                   first_sample=0):
     """Explain the pixels (row, x) where two schedulers' frames differ.
     Exact culling lists for each block of rays the clusters their own K1
     masks hold, so a ray whose slab test rounds out the box of a cluster it
@@ -2352,7 +2426,8 @@ def grouping_flips(rt, integ, scene, cfg, fov_x, pixels, n_samples):
     batched render. A pixel is explained when one of its samples, traced
     alone with its stream id through "pallas" (lists from its own masks)
     and through "pallas_brute" (K3: every cluster), meets a bounce whose
-    hit distances differ. Returns (x, row, sample, bounce, t from its own
+    hit distances differ (samples first_sample .. n_samples - 1 are
+    tried). Returns (x, row, sample, bounce, t from its own
     lists, t over every cluster) a pixel; raises for a pixel it cannot
     explain."""
     import torch
@@ -2364,7 +2439,7 @@ def grouping_flips(rt, integ, scene, cfg, fov_x, pixels, n_samples):
     out = []
     for row, x in pixels:
         found = None
-        for s in range(n_samples):
+        for s in range(first_sample, n_samples):
             o, d = rt.camera_rays(scene, key, s, fov_x, w, h, row, 1)
             o, d = o[0, x:x + 1], d[0, x:x + 1]
             sid = torch.full((1,), row * w + x, dtype=torch.int32,
@@ -2387,13 +2462,14 @@ def grouping_flips(rt, integ, scene, cfg, fov_x, pixels, n_samples):
 
 
 def schedulers_agree(rt, integ, scene, cfg, fov_x, got, want, name, tol,
-                     n_samples):
+                     n_samples, lanes=0):
     """`got` (a RenderResult of the pool or refill) against `want` (the
     batched render of the same samples): every pixel within `tol` (exact
     where a field has none) but at most MAX_FLIPS, each explained by
     grouping_flips; ray and live-lane counts within a path a differing
-    (pixel, sample). Returns (the largest difference a field over the
-    agreeing pixels, the flips)."""
+    (pixel, sample), and a path of each of `lanes` lanes explained apart
+    (lanes whose path changed but not their pixel). Returns (the largest
+    difference a field over the agreeing pixels, the flips)."""
     import torch
 
     a, b = got.stats, want.stats
@@ -2409,7 +2485,7 @@ def schedulers_agree(rt, integ, scene, cfg, fov_x, got, want, name, tol,
         raise AssertionError(f"{name}: {len(pixels)} pixels differ from the "
                              f"batched render (at most {MAX_FLIPS})")
     flips = grouping_flips(rt, integ, scene, cfg, fov_x, pixels, n_samples)
-    paths = len(pixels) * n_samples
+    paths = len(pixels) * n_samples + lanes
     if (abs(got.rays_cast - want.rays_cast) > DEPTH * paths
             or any(abs(u - v) > paths for u, v in zip(got.alive_counts,
                                                     want.alive_counts))):
@@ -2695,6 +2771,324 @@ def refill_path(rt, trav, pi, scene, cfg, fov_x, dev, counters, reps, card,
                 launches=r["launches"], per_step=r["per_step"],
                 calibration=r["calibration"], compacted_mrays=ref_mrays,
                 max_diff=diff, flips=flips)
+
+
+@contextlib.contextmanager
+def setting(module, name, value):
+    """module.name = value inside the block, restored after it."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def frame_vs(rt, integ, scene, cfg, fov_x, got, want, name):
+    """The columnar frame `got` against the row-form frame `want` (sums of
+    the same samples of `cfg`) at the glossy-scene gate's mean (MEAN_RTOL)
+    and pass fraction (PASS_FRACTION of the values within rtol 1e-4, atol
+    1e-5). Its MAX_ABS rule does not hold at 1080p: a lane whose direction
+    or continuation test flips on an ulp takes another path (lane_flips),
+    and a few thousand of 10 M paths do. So the pixels beyond MAX_ABS are
+    counted, and the MAX_FLIPS of them that differ most are each explained
+    by lane_flips. Returns the count of values that differ at all, of the
+    pixels beyond MAX_ABS, the largest difference, and the explained
+    pixels."""
+    import numpy as np
+
+    g, w = np.asarray(got), np.asarray(want)
+    if g.shape != w.shape or not np.isfinite(g).all():
+        raise AssertionError(f"{name}: the frame is not finite or of the "
+                             "reference's shape")
+    within = float(np.isclose(g, w, rtol=1e-4, atol=1e-5).mean())
+    if (abs(g.mean() - w.mean()) > MEAN_RTOL * abs(w.mean())
+            or within < PASS_FRACTION):
+        raise AssertionError(f"{name}: the frame differs beyond the glossy "
+                             f"gate: mean {g.mean()} vs {w.mean()}, "
+                             f"{within:.4f} of values within rtol 1e-4")
+    diff = np.abs(g - w).max(-1)
+    far = np.argwhere(diff > MAX_ABS)
+    worst = far[np.argsort(-diff[tuple(far.T)], kind="stable")][:MAX_FLIPS]
+    return {"values": int(w.size), "values_differ": int((g != w).sum()),
+            "within_rtol_1e-4": within, "max_abs": float(diff.max()),
+            "pixels_beyond_max_abs": int(len(far)),
+            "explained": lane_flips(rt, integ, scene, cfg, fov_x,
+                                    worst.tolist(), g, w)}
+
+
+def lane_flips(rt, integ, scene, cfg, fov_x, pixels, got, want):
+    """Explain the pixels (row, x) where the columnar frame `got` and the
+    row-form frame `want` differ by more than MAX_ABS. The two forms round
+    the shade's three-term reductions apart, so a lane's continuation test
+    or its sampled direction can flip on an ulp and its path go elsewhere.
+    A pixel is explained when its samples, each traced alone (one lane, its
+    stream id) through the row-form and the columnar compacted trace, give
+    the frame's difference: it is then the lane's own arithmetic, not its
+    batch, its sort or the merge. Returns (x, row, the frame's difference,
+    the sample whose lanes differ most, the live lanes entering each bounce
+    of its path in each form) a pixel; raises for a pixel not so
+    explained."""
+    import numpy as np
+    import torch
+
+    from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
+    from raytracer_odin_tpu_torch.utils import prng
+
+    key = prng.key_from_seed(cfg.seed)
+    w, h, depth = cfg.width, cfg.height, cfg.ray_depth
+    opts = integ.TraceOptions(depth=depth, intersector="pallas",
+                              lane_schedule=(pi.RB,) * (depth - 1))
+    out = []
+    for row, x in pixels:
+        lanes = {}
+        for cols in (0, 1):
+            with setting(integ, "COLS", cols):
+                for s in range(cfg.samples):
+                    o, d = rt.camera_rays(scene, key, s, fov_x, w, h, row, 1)
+                    sid = torch.full((1,), row * w + x, dtype=torch.int32,
+                                     device=o.device)
+                    r, aux = integ.trace(scene, o[0, x:x + 1], d[0, x:x + 1],
+                                         key, s, opts, stream_ids=sid)
+                    lanes[cols, s] = (r[0].cpu().numpy(),
+                                      aux["alive_counts"].tolist())
+        alone = sum(lanes[1, s][0] - lanes[0, s][0]
+                    for s in range(cfg.samples))
+        frame = got[row, x] - want[row, x]
+        if not np.allclose(alone, frame, rtol=1e-3, atol=1e-4):
+            raise AssertionError(
+                f"pixel ({x}, {row}): the frames differ by {frame.tolist()}, "
+                f"its lanes traced alone by {alone.tolist()}")
+        s = max(range(cfg.samples), key=lambda k: float(np.abs(
+            lanes[1, k][0] - lanes[0, k][0]).max()))
+        out.append((x, row, frame.tolist(), s, lanes[0, s][1],
+                    lanes[1, s][1]))
+    return out
+
+
+def cols_path(rt, integ, trav, pi, scene, cfg, fov_x, dev, counters, reps,
+              card, demo, g, profile):
+    """Phase 15: the demo through the columnar trace (integ.COLS = 1),
+    calibration plus the demo's steps: overflow 0, K1 and K2 8 a step and
+    8 in calibration, K1 and K2 against their plain versions on the
+    columnar route's sorted bounce-1 batch, the frame against the row-form
+    demo frame of this run at the glossy-scene gate with the count of
+    values that differ, Mrays/s, step time and peak memory beside the
+    demo's."""
+    from raytracer_odin_tpu_torch.render import accum
+    from raytracer_odin_tpu_torch.utils import prng
+
+    steps = cfg.samples
+    with setting(integ, "COLS", 1):
+        r = render_path(rt, scene, cfg, fov_x, dev, counters, steps)
+        print_render(r, steps, card)
+        res = r["res"]
+        if res.overflow != 0 or res.lane_schedule is None:
+            raise AssertionError(f"cols: overflow {res.overflow}")
+        check_launches("cols", r, {"K1": DEPTH, "K2": DEPTH},
+                       {"K1": DEPTH, "K2": DEPTH}, dev.type != "cuda")
+        step = rt.make_render_step(cfg, fov_x,
+                                   lane_schedule=res.lane_schedule,
+                                   device=dev)
+        st = accum.init_stats(1, cfg.height, cfg.width, device=dev)
+        _, seen = record_sweeps(trav, lambda: step(
+            scene, st, prng.key_from_seed(cfg.seed), 0))
+        k1, k2 = batch_checks(pi, trav, scene, seen[1], dev, reps)
+        del seen
+        syncs = sync_sites(lambda: step(
+            scene, st, prng.key_from_seed(cfg.seed), 1), dev)
+        del st
+        if profile:
+            profile_step(rt, accum_copy(res.stats), scene, cfg, fov_x, None,
+                         dev, "cols", step=step)
+    for name, m in (("K1", k1), ("K2", k2)):
+        print(f"  [cols] {name} on the sorted bounce-1 batch: "
+              f"{json.dumps(m)}", flush=True)
+    frame = frame_vs(rt, integ, scene, cfg, fov_x, res.stats.total[0].cpu(),
+                     demo["res"].stats.total[0].cpu(), "cols")
+    step_ms = sum(r["step_s"]) / len(r["step_s"]) * 1e3
+    demo_ms = sum(demo["step_s"]) / len(demo["step_s"]) * 1e3
+    print(f"  [cols] step {step_ms:.3f} ms, {r['mrays']:.3f} Mrays/s, peak "
+          f"{r['peak_gib']:.3f} GiB; row-form demo {demo_ms:.3f} ms, "
+          f"{demo['mrays']:.3f} Mrays/s, peak {demo['peak_gib']:.3f} GiB; "
+          f"host syncs of one step {json.dumps(syncs)}; frame against the "
+          f"demo's {json.dumps(frame)} ({card})", flush=True)
+    return dict(path_info(scene, g), k1=k1, k2=k2, mrays=r["mrays"],
+                step_ms=step_ms, demo_step_ms=demo_ms, peak_gib=r["peak_gib"],
+                launches=r["launches"], per_step=r["per_step"],
+                calibration=r["calibration"], frame=frame, syncs=syncs)
+
+
+def cols_citynight_path(rt, integ, trav, lc, scene, cfg, fov_x, dev,
+                        counters, reps, card, row_frame, row_mrays, profile):
+    """Phase 16: citynight through the columnar trace, PATH_STEPS steps:
+    overflow 0, K1, K2 and K5 8 a step and 8 in calibration (the row
+    route's), K5 against its plain version on the columnar bounce-0 shading
+    batch (the stack boundary of shading_cols.mixture_pdf) and the culled
+    pdf against the dense sum there, lanes through a light's edge
+    explained (edge_flips), the frame against the row-form citynight frame
+    at the glossy-scene gate."""
+    from raytracer_odin_tpu_torch.utils import prng
+
+    steps = cfg.samples
+    g, _, _ = trav.exact_cull_layout(scene)
+    with setting(integ, "COLS", 1):
+        r = render_path(rt, scene, cfg, fov_x, dev, counters, steps)
+        print_render(r, steps, card)
+        res = r["res"]
+        if res.overflow != 0 or res.lane_schedule is None:
+            raise AssertionError(f"cols citynight: overflow {res.overflow}")
+        want = {"K1": DEPTH, "K2": DEPTH, "K5": DEPTH}
+        check_launches("cols citynight", r, want, want, dev.type != "cuda")
+        step = rt.make_render_step(cfg, fov_x,
+                                   lane_schedule=res.lane_schedule,
+                                   device=dev)
+        seen = light_pdf_inputs(lc, step, scene, accum_copy(res.stats),
+                                prng.key_from_seed(cfg.seed), steps, dev)
+        k5 = measure_k5(lc, scene, *seen[0], dev, reps)
+        del seen
+        if profile:
+            profile_step(rt, accum_copy(res.stats), scene, cfg, fov_x, None,
+                         dev, "cols_citynight", step=step)
+    print(f"  [cols citynight] K5 on the bounce-0 shading batch: "
+          f"{json.dumps(k5)}", flush=True)
+    frame = frame_vs(rt, integ, scene, cfg, fov_x, res.stats.total[0].cpu(),
+                     row_frame, "cols citynight")
+    step_ms = sum(r["step_s"]) / len(r["step_s"]) * 1e3
+    print(f"  [cols citynight] step {step_ms:.3f} ms, {r['mrays']:.3f} "
+          f"Mrays/s (row form {row_mrays:.3f}), peak {r['peak_gib']:.3f} "
+          f"GiB; frame against the row form's {json.dumps(frame)} ({card})",
+          flush=True)
+    return dict(path_info(scene, g), k5=k5, mrays=r["mrays"],
+                step_ms=step_ms, peak_gib=r["peak_gib"],
+                launches=r["launches"], per_step=r["per_step"],
+                calibration=r["calibration"], frame=frame)
+
+
+SORT_EVERY = 2
+
+
+def sort_every_path(rt, integ, trav, pi, scene, cfg, fov_x, dev, counters,
+                    reps, card, demo, g, profile):
+    """Phase 17: the demo with integ.SORT_EVERY = 2 (bounces 2, 4 and 6
+    skip the sort): overflow 0, K1 and K2 8 a step, K1 and K2 against
+    their plain versions on the first skip-sort bounce's batch (bounce 2:
+    unsorted, at bounce 1's width, dead lanes as far rays among the live
+    ones) with its mean list, the frame equal to the sorted route's but
+    for the pixels grouping_flips explains, Mrays/s beside it."""
+    import torch
+
+    from raytracer_odin_tpu_torch.render import accum
+    from raytracer_odin_tpu_torch.utils import prng
+
+    steps = cfg.samples
+    with setting(integ, "SORT_EVERY", SORT_EVERY):
+        r = render_path(rt, scene, cfg, fov_x, dev, counters, steps)
+        print_render(r, steps, card)
+        res = r["res"]
+        if res.overflow != 0 or res.lane_schedule is None:
+            raise AssertionError(f"sort_every: overflow {res.overflow}")
+        check_launches("sort_every", r, {"K1": DEPTH, "K2": DEPTH},
+                       {"K1": DEPTH, "K2": DEPTH}, dev.type != "cuda")
+        step = rt.make_render_step(cfg, fov_x,
+                                   lane_schedule=res.lane_schedule,
+                                   device=dev)
+        st = accum.init_stats(1, cfg.height, cfg.width, device=dev)
+        _, seen = record_sweeps(trav, lambda: step(
+            scene, st, prng.key_from_seed(cfg.seed), 0))
+        syncs = sync_sites(lambda: step(
+            scene, st, prng.key_from_seed(cfg.seed), 1), dev)
+        if profile:
+            profile_step(rt, accum_copy(res.stats), scene, cfg, fov_x, None,
+                         dev, "sort_every", step=step)
+    words, rays = seen[2]
+    dead = rays[3] == 1.0
+    dead &= (rays[0] >= 1e37) & (rays[4] == 0) & (rays[5] == 0)
+    live_at = torch.nonzero(~dead).flatten()
+    if not (rays.shape[1] == seen[1][1].shape[1] and bool(dead.any())
+            and live_at.numel()
+            and int(torch.nonzero(dead).flatten()[0]) < int(live_at[-1])):
+        raise AssertionError("sort_every: bounce 2's batch is not bounce "
+                             "1's width with dead lanes among the live ones")
+    k1, k2 = batch_checks(pi, trav, scene, seen[2], dev, reps)
+    counts1, _ = trav.sweep_lists(scene, *seen[1], g,
+                                  trav.exact_cull_layout(scene)[1])
+    batch = {"lanes": rays.shape[1], "dead": int(dead.sum()),
+             "sorted_bounce1_mean_list": float(counts1.float().mean())}
+    del seen, st
+    for name, m in (("K1", k1), ("K2", k2)):
+        print(f"  [sort_every] {name} on bounce 2's batch: {json.dumps(m)}",
+              flush=True)
+    # lanes whose path differs from the sorted route's, whatever their
+    # pixel: each one's hit must depend on the rays its block holds
+    lanes = []
+    for sample in range(steps):
+        ids = {}
+        for every in (1, SORT_EVERY):
+            with setting(integ, "SORT_EVERY", every):
+                ids[every] = live_lane_ids(rt, integ, scene, cfg, fov_x,
+                                           res.lane_schedule, sample)
+        moved = torch.cat([torch.cat([a[~torch.isin(a, b)],
+                                      b[~torch.isin(b, a)]])
+                           for a, b in zip(ids[1], ids[SORT_EVERY])])
+        lanes += [(int(i), sample) for i in torch.unique(moved).tolist()]
+    if len(lanes) > MAX_FLIPS:
+        raise AssertionError(f"sort_every: {len(lanes)} lanes take another "
+                             f"path than in the sorted route")
+    lane_flips_ = [f for i, sample in lanes
+                   for f in grouping_flips(
+                       rt, integ, scene, cfg, fov_x,
+                       [(i // cfg.width, i % cfg.width)], sample + 1,
+                       first_sample=sample)]
+    diff, flips = schedulers_agree(rt, integ, scene, cfg, fov_x, res,
+                                   demo["res"], "sort_every", None, steps,
+                                   lanes=len(lanes))
+    step_ms = sum(r["step_s"]) / len(r["step_s"]) * 1e3
+    print(f"  [sort_every] host syncs of one step {json.dumps(syncs)}",
+          flush=True)
+    print(f"  [sort_every] bounce 2's batch {json.dumps(batch)}; step "
+          f"{step_ms:.3f} ms, {r['mrays']:.3f} Mrays/s against the sorted "
+          f"route's {demo['mrays']:.3f}; rays {res.rays_cast} against "
+          f"{demo['res'].rays_cast}; pixels that differ, each explained "
+          f"(x, row, sample, bounce, t over its own lists, t over every "
+          f"cluster): {flips}; lanes whose path differs but not their "
+          f"pixel, each explained alike: {lane_flips_} ({card})", flush=True)
+    return dict(path_info(scene, g), k1=dict(k1, batch=batch), k2=k2,
+                mrays=r["mrays"], step_ms=step_ms, peak_gib=r["peak_gib"],
+                launches=r["launches"], per_step=r["per_step"],
+                calibration=r["calibration"], max_diff=diff, flips=flips,
+                lane_flips=lane_flips_, syncs=syncs)
+
+
+def live_lane_ids(rt, integ, scene, cfg, fov_x, schedule, sample):
+    """The sorted stream ids of the lanes that continue after each bounce
+    of one compacted sample of `cfg` (integ._shade_vertex's continuation,
+    read with the ids prng.uniforms was given for the same lanes)."""
+    import torch
+
+    from raytracer_odin_tpu_torch.utils import prng
+
+    real_u, real_s = prng.uniforms, integ._shade_vertex
+    last, seen = {}, []
+
+    def uniforms(key, samples, tags, sids, n):
+        last["sids"] = sids
+        return real_u(key, samples, tags, sids, n)
+
+    def shade(*args, **kw):
+        out = real_s(*args, **kw)
+        seen.append(torch.sort(last["sids"].reshape(-1)[
+            out[4].reshape(-1)]).values)
+        return out
+
+    prng.uniforms, integ._shade_vertex = uniforms, shade
+    try:
+        rt.sample_pass(scene, prng.key_from_seed(cfg.seed), sample, fov_x,
+                       cfg.width, cfg.height,
+                       rt._trace_options(cfg, lane_schedule=schedule))
+    finally:
+        prng.uniforms, integ._shade_vertex = real_u, real_s
+    return seen
 
 
 def sched_cli_path(dev, demo_gltf, w, h, rehearsal):

@@ -1,9 +1,12 @@
 """ctypes loader for the port's native host runtime (csrc/rtnative.cpp).
 
 Compiles the shared library with g++ on first use into the gitignored
-`raytracer_odin_tpu_torch/build/` directory, and raises if it cannot: PNG
-row unfiltering and the BVH builder (ops/bvh.py) have no other path, since
-the JAX package's numpy BVH fallback gives a different triangle permutation.
+`raytracer_odin_tpu_torch/build/` directory, and raises if it cannot. With
+RT_TPU_NO_NATIVE set (the JAX package's switch), `load` returns None and
+PNG row unfiltering and the BVH builder take their numpy paths
+(png._unfilter_py, bvh._build_py): only then, since the numpy BVH orders
+the triangles otherwise than the native builder, so a silent switch would
+change every cluster.
 """
 
 from __future__ import annotations
@@ -91,9 +94,12 @@ class _NativeLib:
         )
 
 
-def load() -> _NativeLib:
-    """Return the native lib wrapper, building it first if needed."""
+def load() -> _NativeLib | None:
+    """Return the native lib wrapper, building it first if needed; None
+    when RT_TPU_NO_NATIVE is set (read at every call)."""
     global _lib
+    if os.environ.get("RT_TPU_NO_NATIVE"):
+        return None
     with _lock:
         if _lib is None:
             if (not _SO.exists()

@@ -3,7 +3,7 @@
 Replaces the reference's `vendor:stb/image` load (textures.odin:37-52) and
 `stb_image_write.write_png` (output.odin:95-103). Pure Python chunk/zlib
 handling; row unfiltering runs in the native C++ helper
-(csrc/rtnative.cpp).
+(csrc/rtnative.cpp), or in numpy with RT_TPU_NO_NATIVE set.
 
 Supported: bit depths 8/16, color types gray(0), RGB(2), palette(3),
 gray+alpha(4), RGBA(6), non-interlaced. Encode: 8-bit RGB/RGBA/gray.
@@ -23,13 +23,62 @@ _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
 
+def _paeth(a, b, c):
+    p = int(a) + int(b) - int(c)
+    pa, pb, pc = abs(p - int(a)), abs(p - int(b)), abs(p - int(c))
+    if pa <= pb and pa <= pc:
+        return a
+    if pb <= pc:
+        return b
+    return c
+
+
+def _unfilter_py(raw: np.ndarray, height: int, stride: int,
+                 bpp: int) -> np.ndarray:
+    """The numpy (slow) unfilter of RT_TPU_NO_NATIVE; `raw` is
+    [height, 1 + stride] uint8."""
+    out = np.zeros((height, stride), np.uint8)
+    for y in range(height):
+        ftype = raw[y, 0]
+        line = raw[y, 1:].astype(np.int32)
+        prev = (out[y - 1].astype(np.int32) if y > 0
+                else np.zeros(stride, np.int32))
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:  # sub: cumulative along bpp-strided lanes
+            cur = line.copy()
+            for i in range(bpp, stride):
+                cur[i] = (cur[i] + cur[i - bpp]) & 0xFF
+        elif ftype == 2:  # up
+            cur = (line + prev) & 0xFF
+        elif ftype == 3:  # average
+            cur = line.copy()
+            for i in range(stride):
+                left = cur[i - bpp] if i >= bpp else 0
+                cur[i] = (cur[i] + ((left + prev[i]) >> 1)) & 0xFF
+        elif ftype == 4:  # paeth
+            cur = line.copy()
+            for i in range(stride):
+                left = cur[i - bpp] if i >= bpp else 0
+                above_left = prev[i - bpp] if i >= bpp else 0
+                cur[i] = (cur[i] + _paeth(left, prev[i], above_left)) & 0xFF
+        else:
+            raise ValueError(f"bad PNG filter type {ftype}")
+        out[y] = cur.astype(np.uint8)
+    return out
+
+
 def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray:
     """Undo the per-row filters; `raw` holds height rows of 1 + stride bytes
     (filter byte first). Runs in the native helper, which raises on a bad
-    filter byte."""
+    filter byte, or with RT_TPU_NO_NATIVE set in `_unfilter_py`."""
+    lib = native.load()
+    if lib is None:
+        return _unfilter_py(raw.reshape(height, 1 + stride), height, stride,
+                            bpp)
     buf = np.ascontiguousarray(raw.reshape(height, 1 + stride))
     out = np.zeros((height, stride), np.uint8)
-    return native.load().png_unfilter(buf, out, height, stride, bpp)
+    return lib.png_unfilter(buf, out, height, stride, bpp)
 
 
 def decode(data: bytes) -> np.ndarray:

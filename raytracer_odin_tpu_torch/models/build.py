@@ -197,7 +197,7 @@ def scene_arrays(host: HostScene, env_map: HostTexture | None = None,
     }
     statics = {"env_tex": env_tex_id, "row_spec": row_spec,
                "tex_kinds": tex_kinds,
-               "stream": ptri.shape[0] > pi.STREAM_TRIS}
+               "stream": ptri.shape[0] > pi.stream_tris()}
     return arrays, statics
 
 

@@ -16,10 +16,16 @@ import subprocess
 import threading
 from pathlib import Path
 
+from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
+
 _PKG_ROOT = Path(__file__).resolve().parents[1]
 SOURCE = _PKG_ROOT / "csrc" / "intersect_kernels.cu"
 BUILD_DIR = _PKG_ROOT / "build"
-_SO = BUILD_DIR / "librt_intersect_sm90a.so"
+# The kernel layout of this process (pallas_intersect.LEAF, RB, RB_SUB, read
+# from the environment at import) is compiled in: one library a layout.
+LAYOUT = {"RT_LEAF": pi.LEAF, "RT_RB": pi.RB, "RT_RB_SUB": pi.RB_SUB}
+_SO = BUILD_DIR / ("librt_intersect_sm90a_"
+                   + "_".join(str(v) for v in LAYOUT.values()) + ".so")
 
 # -fmad=false and IEEE division (no --use_fast_math) make the kernels round
 # every expression as the plain PyTorch versions do: bit-equal results.
@@ -49,7 +55,8 @@ def build() -> str:
     Raises RuntimeError with the compiler's output when the build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    defines = [f"-D{k}={v}" for k, v in LAYOUT.items()]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(SOURCE)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     report = proc.stdout + proc.stderr
     if proc.returncode != 0:

@@ -18,8 +18,16 @@ The persistent pool (ops/wavefront.py) and cross-sample refill
 (ops/refill.py) schedule the same physics and draws over a step's samples.
 The debug surface rides the full-width trace: registered probes
 (want_aux, ops/probes.py), the per-lane ray log (log_paths) and the live-
-lane NaN check (check_nans) each turn compaction off. The columnar state
-form is not ported.
+lane NaN check (check_nans) each turn compaction off.
+
+Two experiments of the JAX package ride the compacted trace, each off by
+default and read from the environment at import under its JAX name:
+  * COLS (RT_TPU_COLS=1) — `_trace_compacted_cols`: the lane state as a
+    [12, N] column table and the shade through ops/shading_cols.py;
+  * SORT_EVERY (RT_TPU_SORT_EVERY=k) — sort and compact only on bounces b
+    with (b - 1) % k == 0; the bounces between cast and shade every lane in
+    the previous bounce's order, dead lanes as far rays, with no slice and
+    no retirement.
 """
 
 from __future__ import annotations
@@ -29,9 +37,17 @@ from typing import NamedTuple
 import torch
 
 from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
-from raytracer_odin_tpu_torch.ops import probes, shading, texture, traverse
+from raytracer_odin_tpu_torch.ops import (
+    probes,
+    shading,
+    shading_cols,
+    texture,
+    traverse,
+)
 from raytracer_odin_tpu_torch.ops.geometry import BIG, RAY_EPS
 from raytracer_odin_tpu_torch.utils import prng
+from raytracer_odin_tpu_torch.utils import vec3c as v3c
+from raytracer_odin_tpu_torch.utils.env import env_int
 from raytracer_odin_tpu_torch.utils.math3d import (
     cross,
     device_vector,
@@ -39,6 +55,13 @@ from raytracer_odin_tpu_torch.utils.math3d import (
     norm_l1,
     normalize,
 )
+
+# Re-sort cadence of the compacted trace: sort and compact on bounces b with
+# (b - 1) % SORT_EVERY == 0 (1: every bounce, the default route).
+SORT_EVERY = env_int("RT_TPU_SORT_EVERY", 1, lambda v: v >= 1,
+                     "an integer >= 1 (bounces a sort)")
+# Columnar compacted trace (1) or the packed [N, 12] row state (0).
+COLS = env_int("RT_TPU_COLS", 0, lambda v: v in (0, 1), "0 or 1")
 
 
 class TraceOptions(NamedTuple):
@@ -247,6 +270,46 @@ def _shade_vertex(scene, o, d, t, tri_idx, alive, uniforms, has_lights,
             ev, hit, missed)
 
 
+def _shade_vertex_cols(scene, o, d, t, tri_idx, alive, uniforms, has_lights,
+                       throughput, radiance, light_chunk: int = 256):
+    """Columnar `_shade_vertex`: o, d, throughput and radiance are [3, N]
+    column triples, uniforms six [N] columns. The same operations in the
+    same order (env on a miss, emission with the throughput before its
+    update, the value/pdf continuation rule), the shade through
+    ops/shading_cols.py. `_point_material` keeps its [N, k] row form: o and
+    d are stacked once for it, and its normal, color and emission come back
+    in one splat.
+
+    Returns (pos, new_d, throughput, radiance, cont); pos and new_d are
+    garbage on dead lanes (masked by `cont`)."""
+    hit = (tri_idx >= 0) & alive
+    missed = (~(tri_idx >= 0)) & alive
+
+    if scene.env_tex >= 0:
+        env = texture.sample_env_cols(scene, d, scene.env_tex)
+        radiance = radiance + torch.where(missed, throughput * env, 0.0)
+
+    m = _point_material(scene, v3c.stack(o), v3c.stack(d), t, tri_idx)
+    rows = v3c.splat(torch.cat([m["normal"], m["color"], m["emission"]],
+                               dim=-1))
+    normal = torch.where(m["inside"], -rows[0:3], rows[0:3])
+    color, emission = rows[3:6], rows[6:9]
+    pos = o + d * t
+    rough, metal = m["roughness"], m["metallic"]
+
+    new_d = shading_cols.sample_direction(scene, pos, normal, rough, d,
+                                          uniforms, has_lights)
+    pdf = shading_cols.mixture_pdf(scene, pos, normal, rough, d, new_d,
+                                   has_lights, light_chunk=light_chunk)
+    value = shading_cols.shade(color, normal, metal, rough, d, new_d)
+
+    radiance = radiance + torch.where(hit, throughput * emission, 0.0)
+    # Continuation rule (raytracer.odin:495): NaN compares false.
+    cont = (v3c.norm_l1(value) / pdf > 1e-5) & hit
+    throughput = torch.where(cont, throughput * (value / pdf), throughput)
+    return pos, new_d, throughput, radiance, cont
+
+
 def check_live_nans(sample, bounce: int, stage: str, stream_ids, checks):
     """Raise FloatingPointError if a live lane holds a NaN: `checks` is a
     list of (name, values [..., k] or [...], live mask [...]). Dead lanes
@@ -448,34 +511,184 @@ def sort_lanes(state, alive, aabb8, n_super: int, budget: int):
     Returns (the sorted state [N, 12], perm [N] source lane of each sorted
     lane, the batch's RAY_EPS-offset kernel rows [8, s_width] and their
     mask words [W, s_width])."""
-    dev = state.device
     rb = pi.RB
     width = state.shape[0]
-    far_o = device_vector((BIG, 0.0, 0.0), device=dev)
-    unit_x = device_vector((1.0, 0.0, 0.0), device=dev)
-    state[:, 0:3] = torch.where(alive[:, None], state[:, 0:3], far_o)
-    state[:, 3:6] = torch.where(alive[:, None], state[:, 3:6], unit_x)
     s_width = max(rb, min(width, (int(budget) // rb) * rb))
-
-    oc, dc = state[:, 0:3], state[:, 3:6]
-    rays_pre = torch.zeros((8, width), dtype=torch.float32, device=dev)
-    rays_pre[0:3] = (oc + dc * RAY_EPS).T
-    rays_pre[3:6] = dc.T
+    rays_pre = _far_rows(state, alive)
     words_p = pi.cluster_masks_rows(aabb8, rays_pre, n_super)
     keys, word_slots = traverse._lex_sort_keys(
-        alive, traverse._ray_octant(dc),
+        alive, traverse._ray_octant(state[:, 3:6]),
         [words_p[i] for i in range(words_p.shape[0])], n_super,
     )
     perm = traverse.lex_sort_perm(keys)
     state = state[perm]
     words = torch.stack([keys[i][perm[:s_width]] for i in word_slots], dim=0)
-    so, sd = state[:s_width, 0:3], state[:s_width, 3:6]
-    rays = torch.zeros((8, s_width), dtype=torch.float32, device=dev)
-    rays[0:3] = (so + sd * RAY_EPS).T
-    rays[3:6] = sd.T
-    return state, perm, rays, words
+    return state, perm, _rows(state[:s_width]), words
 
 
+def _rows(state):
+    """RAY_EPS-offset kernel rows [8, N] of the packed [N, 12] state."""
+    rows = torch.zeros((8, state.shape[0]), dtype=torch.float32,
+                       device=state.device)
+    rows[0:3] = (state[:, 0:3] + state[:, 3:6] * RAY_EPS).T
+    rows[3:6] = state[:, 3:6].T
+    return rows
+
+
+def _far_rows(state, alive):
+    """Dead lanes of the packed [N, 12] state become far rays (BIG, 0, 0)
+    along +x (empty masks), in place; returns the lanes' kernel rows
+    [8, N] in their order."""
+    dev = state.device
+    far_o = device_vector((BIG, 0.0, 0.0), device=dev)
+    unit_x = device_vector((1.0, 0.0, 0.0), device=dev)
+    state[:, 0:3] = torch.where(alive[:, None], state[:, 0:3], far_o)
+    state[:, 3:6] = torch.where(alive[:, None], state[:, 3:6], unit_x)
+    return _rows(state)
+
+
+def _far_rows_cols(state, alive):
+    """`_far_rows` of the [12, N] column state: dead lanes become far rays
+    (BIG, 0, 0) along +x in place; returns the kernel rows [8, N]."""
+    dev = state.device
+    far_o = device_vector((BIG, 0.0, 0.0), device=dev)[:, None]
+    unit_x = device_vector((1.0, 0.0, 0.0), device=dev)[:, None]
+    state[0:3] = torch.where(alive, state[0:3], far_o)
+    state[3:6] = torch.where(alive, state[3:6], unit_x)
+    return _rows_cols(state)
+
+
+def _rows_cols(state):
+    """RAY_EPS-offset kernel rows [8, N] of the [12, N] column state."""
+    rows = torch.zeros((8, state.shape[1]), dtype=torch.float32,
+                       device=state.device)
+    rows[0:3] = state[0:3] + state[3:6] * RAY_EPS
+    rows[3:6] = state[3:6]
+    return rows
+
+
+def sort_lanes_cols(state, alive, aabb8, n_super: int, budget: int):
+    """sort_lanes of the [12, N] column state (rows o.xyz, d.xyz,
+    throughput.xyz, radiance.xyz): dead lanes become far rays, K1 masks
+    every lane, one lex_sort_perm permutation gathers the columns, and the
+    batch is the first `budget` lanes rounded down to RB, within [RB, N].
+    Returns (the sorted state [12, N], perm [N], the batch's kernel rows
+    [8, s_width], their mask words [W, s_width])."""
+    rb = pi.RB
+    width = state.shape[1]
+    s_width = max(rb, min(width, (int(budget) // rb) * rb))
+    rays_pre = _far_rows_cols(state, alive)
+    words_p = pi.cluster_masks_rows(aabb8, rays_pre, n_super)
+    dc = state[3:6]
+    octant = ((dc[0] < 0).to(torch.int32) + 2 * (dc[1] < 0).to(torch.int32)
+              + 4 * (dc[2] < 0).to(torch.int32))
+    keys, word_slots = traverse._lex_sort_keys(
+        alive, octant, [words_p[i] for i in range(words_p.shape[0])],
+        n_super,
+    )
+    perm = traverse.lex_sort_perm(keys)
+    state = state[:, perm]
+    words = torch.stack([keys[i][perm[:s_width]] for i in word_slots], dim=0)
+    return state, perm, _rows_cols(state[:, :s_width]), words
+
+
+def _trace_compacted_cols(scene, o, d, key, sample, opts: TraceOptions,
+                          stream_ids):
+    """The columnar compacted trace (COLS): `_trace_compacted`'s schedule,
+    sorts, draws and SORT_EVERY rule with the lane state a [12, N] column
+    table that one lex_sort_perm permutation gathers a sorted bounce
+    (sort_lanes_cols), shaded by `_shade_vertex_cols`. Three lane rules are
+    the JAX package's: bounce 0's camera rays are cast in image order, then
+    flattened and padded to an RB multiple before their shade (padding
+    lanes: tri_idx -1, alive iota < n0); dead lanes become far rays
+    (BIG, 0, 0) along +x before every K1; the retired radiance stays three
+    columns up to the merge. Returns (radiance [..., 3], aux) as
+    `_trace_compacted`."""
+    has_lights = scene.light_p.shape[0] > 0
+    batch_shape = tuple(o.shape[:-1])
+    dev = o.device
+    schedule = opts.lane_schedule
+    n0 = 1
+    for s in batch_shape:
+        n0 *= s
+    n0p = -(-n0 // pi.RB) * pi.RB
+
+    # ---- bounce 0: full width, image order ----
+    t, tri_idx = traverse.cast_rays(scene, o, d, intersector="pallas",
+                                    sort=False)
+    state = torch.zeros((12, n0p), dtype=torch.float32, device=dev)
+    state[0:3, :n0] = o.reshape(n0, 3).T
+    state[3:6, :n0] = d.reshape(n0, 3).T
+    state[6:9] = 1.0
+    t0 = torch.zeros(n0p, dtype=torch.float32, device=dev)
+    t0[:n0] = t.reshape(n0)
+    idx0 = torch.full((n0p,), -1, dtype=tri_idx.dtype, device=dev)
+    idx0[:n0] = tri_idx.reshape(n0)
+    iota = torch.arange(n0p, dtype=torch.int32, device=dev)
+    alive = iota < n0
+    stream = torch.zeros(n0p, dtype=torch.int32, device=dev)
+    stream[:n0] = stream_ids.reshape(n0)
+    rays = torch.full((), n0, dtype=torch.int64, device=dev)
+    alive_counts = [rays]
+    uniforms = prng.uniforms_cols(key, sample, 0, stream, 6)
+    *cols, alive = _shade_vertex_cols(
+        scene, state[0:3], state[3:6], t0, idx0, alive, uniforms,
+        has_lights, state[6:9], state[9:12], opts.light_chunk,
+    )
+    state = torch.cat(cols)
+    _g, n_super, aabb8 = traverse.exact_cull_layout(scene)
+
+    retired_iota = []
+    retired_rad = []
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    for b in range(1, opts.depth):
+        n_alive = alive.sum()
+        alive_counts.append(n_alive)
+        if (b - 1) % SORT_EVERY:
+            # Skip-sort bounce: every lane in the previous bounce's order.
+            rays_pre = _far_rows_cols(state, alive)
+            words = pi.cluster_masks_rows(aabb8, rays_pre, n_super)
+            rays = rays + n_alive
+        else:
+            budget = (schedule[b - 1] if b - 1 < len(schedule)
+                      else schedule[-1])
+            state, perm, rays_pre, words = sort_lanes_cols(
+                state, alive, aabb8, n_super, budget)
+            s_width = rays_pre.shape[1]
+            overflow = overflow + torch.clamp(n_alive - s_width, min=0)
+            iota = iota[perm]
+            stream = stream[perm][:s_width]
+            # The tail is dead (or overflow, which poisons the render): its
+            # radiance is final.
+            retired_iota.append(iota[s_width:])
+            retired_rad.append(state[9:12, s_width:])
+            state = state[:, :s_width].contiguous()
+            iota = iota[:s_width]
+            alive = torch.arange(s_width, device=dev) < n_alive
+            # Alive lanes are a sorted prefix: min(n_alive, s_width) are
+            # cast.
+            rays = rays + torch.clamp(n_alive, max=s_width)
+        t, tri_idx = traverse.cast_presorted_rows(scene, rays_pre,
+                                                  words=words)
+        uniforms = prng.uniforms_cols(key, sample, b, stream, 6)
+        *cols, alive = _shade_vertex_cols(
+            scene, state[0:3], state[3:6], t, tri_idx, alive, uniforms,
+            has_lights, state[6:9], state[9:12], opts.light_chunk,
+        )
+        state = torch.cat(cols)
+
+    # ---- merge: each lane id appears exactly once ----
+    retired_iota.append(iota)
+    retired_rad.append(state[9:12])
+    merged = torch.empty((3, n0p), dtype=torch.float32, device=dev)
+    merged[:, torch.cat(retired_iota).long()] = torch.cat(retired_rad, dim=1)
+    radiance = v3c.stack(merged[:, :n0]).reshape(batch_shape + (3,))
+    aux = {
+        "rays_cast": rays,
+        "overflow": overflow,
+        "alive_counts": torch.stack(alive_counts),
+    }
+    return radiance, aux
 def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions,
                      stream_ids):
     """Dead-lane-compacted wavefront (TraceOptions.lane_schedule).
@@ -491,7 +704,16 @@ def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions,
     The JAX package moves the state through the sort as lax.sort payload
     columns; here one permutation gathers a packed [N, 12] state row, and
     the stream ids [...] ride the same permutation (the JAX package
-    recomputes them from the lane id under its stream_base promise)."""
+    recomputes them from the lane id under its stream_base promise).
+
+    With SORT_EVERY > 1, bounces b with (b - 1) % SORT_EVERY != 0 skip the
+    sort: K1 and the sweep run on every lane in the previous bounce's
+    order, dead lanes as far rays, with no slice and no retirement, and
+    rays_cast grows by that bounce's live lanes. COLS routes to
+    `_trace_compacted_cols`."""
+    if COLS:
+        return _trace_compacted_cols(scene, o, d, key, sample, opts,
+                                     stream_ids)
     has_lights = scene.light_p.shape[0] > 0
     batch_shape = tuple(o.shape[:-1])
     dev = o.device
@@ -519,8 +741,24 @@ def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions,
     retired_rad = []
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
     for b in range(1, opts.depth):
-        budget = schedule[b - 1] if b - 1 < len(schedule) else schedule[-1]
         n_alive = alive.sum()
+        if (b - 1) % SORT_EVERY:
+            # Skip-sort bounce: every lane in the previous bounce's order.
+            rays_pre = _far_rows(state, alive)
+            words = pi.cluster_masks_rows(aabb8, rays_pre, n_super)
+            alive_counts.append(n_alive)
+            rays = rays + n_alive
+            t, tri_idx = traverse.cast_presorted_rows(scene, rays_pre,
+                                                      words=words)
+            uniforms = prng.uniforms(key, sample, b, stream, 6)
+            o2, d2, thr, rad, alive = _shade_vertex(
+                scene, state[:, 0:3], state[:, 3:6], t, tri_idx, alive,
+                uniforms, has_lights, state[:, 6:9], state[:, 9:12],
+                opts.light_chunk,
+            )[:5]
+            state = torch.cat([o2, d2, thr, rad], dim=1)
+            continue
+        budget = schedule[b - 1] if b - 1 < len(schedule) else schedule[-1]
         state, perm, rays_sorted, s_words = sort_lanes(
             state, alive, aabb8, n_super, budget
         )

@@ -36,11 +36,18 @@ import torch
 from raytracer_odin_tpu_torch.ops import culling
 from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
 from raytracer_odin_tpu_torch.ops.geometry import BIG, RAY_EPS
+from raytracer_odin_tpu_torch.utils.env import env_int
 
 LEAF_L = 32  # lights per cluster
-# The culled light pdf (K5) serves scenes with at least this many lights;
-# below it the dense sum (shading.light_pdf_sum) does.
-LIGHT_CULL_MIN = 512
+
+
+def threshold() -> int:
+    """The light count from which the culled light pdf (K5) serves a scene;
+    below it the dense sum (shading.light_pdf_sum) does. RT_TPU_LIGHT_CULL_MIN
+    (default 512), read at every call as the JAX package reads it."""
+    return env_int("RT_TPU_LIGHT_CULL_MIN", 512, lambda v: v >= 0,
+                   "an integer >= 0 (lights)")
+
 # Light-cluster list length per ray block; longer lists sweep every cluster.
 LIST_CAP = 128
 ROW_WIDTH = 16  # p(3) u(3) v(3) ng(3) fac valid pad(2)

@@ -39,18 +39,49 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-LEAF = 64      # triangles per cluster
-RB = 512       # rays per bundle: lane counts are padded to RB multiples
-RB_SUB = 256   # rays per cluster list (one K2 thread block)
+from raytracer_odin_tpu_torch.utils.env import env_int
+
+# The JAX package's kernel layout, read at import under its variables. The
+# CUDA build takes each as a define (ops/cuda_build.py keys its library by
+# them), within what its kernels can hold: the sweep stages two clusters of
+# LEAF 48-byte rows in shared memory and tests four triangles a step (K3:
+# two), and a list covers whole 128-ray thread blocks, as does K5's.
+LEAF = env_int("RT_TPU_LEAF", 64, lambda v: v % 4 == 0 and 4 <= v <= 512,
+               "a multiple of 4 from 4 to 512 (triangles per cluster)")
+RB = env_int("RT_TPU_RB", 512, lambda v: v % 128 == 0 and v > 0,
+             "a positive multiple of 128 (rays per bundle)")
+RB_SUB = env_int("RT_TPU_RB_SUB", 256, lambda v: v % 128 == 0 and v > 0,
+                 "a positive multiple of 128 that divides RT_TPU_RB "
+                 "(rays per cluster list)")
+if RB % RB_SUB:
+    raise ValueError(f"RT_TPU_RB_SUB={RB_SUB} must divide RT_TPU_RB={RB}")
 BIG = 3.0e38
 # The JAX package's per-call VMEM triangle budget. Resident scenes above it
 # are swept there in chunks of this many triangles, merged by strict min-t
 # in ascending chunk order; the port sweeps once over chunk-major lists
 # (traverse.sweep_lists), which gives the same hits, equal-t ties included.
+# RT_TPU_CHUNK_TRIS overrides it at every call (chunk_tris).
 CHUNK_TRIS = 24 * 1024
 # Above this many padded triangles a scene is streamed: decided once at
 # scene build (DeviceScene.stream), it selects RB-lane lists and K4.
+# RT_TPU_STREAM_TRIS overrides it at the build (stream_tris).
 STREAM_TRIS = 8 * CHUNK_TRIS
+
+
+def chunk_tris() -> int:
+    """Triangles a chunk of the JAX package's resident sweep:
+    RT_TPU_CHUNK_TRIS, else CHUNK_TRIS."""
+    return env_int("RT_TPU_CHUNK_TRIS", CHUNK_TRIS, lambda v: v >= 1,
+                   "an integer >= 1 (triangles)")
+
+
+def stream_tris() -> int:
+    """Padded triangles above which a scene is streamed:
+    RT_TPU_STREAM_TRIS, else STREAM_TRIS."""
+    return env_int("RT_TPU_STREAM_TRIS", STREAM_TRIS, lambda v: v >= 0,
+                   "an integer >= 0 (padded triangles)")
+
+
 # Mask kernel |d| clamp (sign kept) before the exact reciprocal.
 TINY = 1e-30
 

@@ -6,7 +6,7 @@ surface, 1/3 GGX-VNDF (shading.odin:139-151); without emissive surfaces the
 light branch is skipped and VNDF takes its mass (pdf weighted x2). The
 light pdf sums over every emissive triangle hit along the ray, converting
 area to solid angle with t^2/|cos| (shading.odin:52-60): a dense sweep
-over the light list, or from light_cull.LIGHT_CULL_MIN lights on the
+over the light list, or from light_cull.threshold() lights on the
 cluster-culled sum of K5 (ops/light_cull.py). The BRDF is glTF metallic-roughness Cook-Torrance GGX
 + Lambert (shading.odin:164-204), term by term with its quirks. All
 randomness comes in as explicit uniform tensors.
@@ -227,13 +227,13 @@ def mixture_pdf(scene, mat_pos, mat_normal, mat_roughness, in_d, out_d,
                 has_lights: bool, light_chunk: int = 256):
     """(cos_pdf + light_pdf + vndf_pdf * (1|2)) / 3 (shading.odin:153-162).
     The light pdf is the dense sum (`light_chunk` lights a step) below
-    light_cull.LIGHT_CULL_MIN lights and the culled sum (K5) from there on,
+    light_cull.threshold() lights and the culled sum (K5) from there on,
     on any device (the JAX package takes the dense sum whenever its backend
     is the CPU)."""
     p_cos = cosine_weighted_pdf(mat_normal, out_d)
     p_vndf = vndf_pdf(mat_normal, -in_d, sq(mat_roughness), out_d)
     if has_lights:
-        if scene.light_p.shape[0] >= light_cull.LIGHT_CULL_MIN:
+        if scene.light_p.shape[0] >= light_cull.threshold():
             p_light = light_cull.light_pdf_sum_culled(scene, mat_pos, out_d)
         else:
             p_light = light_pdf_sum(scene, mat_pos, out_d, chunk=light_chunk)

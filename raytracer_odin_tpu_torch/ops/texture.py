@@ -102,3 +102,17 @@ def sample_env(scene, d, env_tex_id: int):
                         device=d.device)
     return sample(scene, tex_id, uv, srgb=False,
                   default=(0.0, 0.0, 0.0, 0.0))[..., :3]
+
+
+def sample_env_cols(scene, d, env_tex_id: int):
+    """Columnar `sample_env`: d is a [3, ...] column triple; returns the
+    (r, g, b) column triple. The equirect mapping runs on columns; the uv
+    pair and the quad-row gather keep their row form."""
+    u = 0.5 + torch.atan2(d[2], d[0]) / (2.0 * math.pi)
+    v = 0.5 - torch.asin(torch.clamp(d[1], -1.0, 1.0)) / math.pi
+    uv = torch.stack([u, v], dim=-1)
+    tex_id = torch.full(d.shape[1:], env_tex_id, dtype=torch.int32,
+                        device=d.device)
+    out = sample(scene, tex_id, uv, srgb=False,
+                 default=(0.0, 0.0, 0.0, 0.0))
+    return out[..., :3].movedim(-1, 0).contiguous()

@@ -27,8 +27,6 @@ triangles and "bvh" above.
 
 from __future__ import annotations
 
-import os
-
 import torch
 
 from raytracer_odin_tpu_torch.ops import culling
@@ -40,16 +38,22 @@ from raytracer_odin_tpu_torch.ops.geometry import (
     intersect_aabb,
     intersect_triangle,
 )
+from raytracer_odin_tpu_torch.utils.env import env_int
 from raytracer_odin_tpu_torch.utils.math3d import device_vector
 
-# Exact per-ray culling works on at most this many mask bits.
-MAX_EXACT_CLUSTERS = 256
+# Exact per-ray culling works on at most this many mask bits (read at
+# import from RT_TPU_MAX_EXACT, as the JAX package reads it). K1 stages one
+# 32-byte box a bit in shared memory, 48 KiB at most without opting in.
+MAX_EXACT_CLUSTERS = env_int(
+    "RT_TPU_MAX_EXACT", 256, lambda v: 1 <= v <= 1536,
+    "an integer from 1 to 1536 (mask bits; K1's box table)")
 
 # Two-phase t-bounded culling of presorted exact-mask casts (0 = off), read
 # from the JAX package's own switch: phase A sweeps each block's K nearest
 # listed clusters, then every cluster whose per-ray slab entry lies beyond
 # the hit found is pruned, and phase B sweeps the rest.
-TWO_PHASE_K = int(os.environ.get("RT_TPU_TWO_PHASE", 0))
+TWO_PHASE_K = env_int("RT_TPU_TWO_PHASE", 0, lambda v: v >= 0,
+                      "an integer >= 0 (clusters phase A sweeps; 0: off)")
 
 # Brute sweep working set: rays per chunk are chosen so that one [rays,
 # brute_chunk] intermediate holds at most this many elements.
@@ -206,7 +210,7 @@ def sweep_lists(scene, words_packed, rays, g: int, n_super: int,
         scene.cluster_hi,
     )
     bmask = cmask & imask
-    chunk_c = max(1, pi.CHUNK_TRIS // pi.LEAF)
+    chunk_c = max(1, pi.chunk_tris() // pi.LEAF)
     if scene.stream or n_clusters <= chunk_c:
         return culling.build_lists(bmask, cap=cap, near=near,
                                    overflow_ids=scene.stream)

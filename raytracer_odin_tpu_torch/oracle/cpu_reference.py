@@ -20,9 +20,9 @@ So statistical agreement between the two is strong evidence of
 correctness. It reads a DeviceScene on any device through .cpu().numpy()
 and needs nothing but numpy, so it runs on a GPU host without jax, where
 it is the one reference besides the golden images. Everything is
-vectorized over a flat ray batch; intersection is brute force. The JAX
-module's row-band fan-out (render_mp) and its per-pixel variance output
-are not copied: nothing in the port calls them.
+vectorized over a flat ray batch; intersection is brute force. `render`
+can return the per-pixel sample variance and render a band of rows;
+`render_mp` fans the rows out over a process pool in bands.
 """
 
 from __future__ import annotations
@@ -430,27 +430,97 @@ def trace(sc: OracleScene, o, d, depth, rng):
     return radiance
 
 
-def render(dscene, width, height, fov_x, depth, spp, seed=0):
-    """Render the mean image [height, width, 3] of `spp` samples with the
-    oracle; rays and sampling decisions come from numpy's generator seeded
-    with `seed`."""
+def render(dscene, width, height, fov_x, depth, spp, seed=0,
+           return_var=False, row_offset=0, n_rows=None):
+    """Render the mean image [n_rows, width, 3] of `spp` samples with the
+    oracle: rows [row_offset, row_offset + n_rows) of a height-`height`
+    image (all of it by default); rays and sampling decisions come from
+    numpy's generator seeded with `seed`. With return_var, returns (mean,
+    per-pixel sample variance)."""
     sc = dscene if isinstance(dscene, OracleScene) else OracleScene(dscene)
+    if n_rows is None:
+        n_rows = height
     rng = np.random.default_rng(seed)
-    acc = np.zeros((height, width, 3), np.float64)
+    acc = np.zeros((n_rows, width, 3), np.float64)
+    acc2 = np.zeros((n_rows, width, 3), np.float64)
     aspect = width / height
     tan_fx = np.tan(fov_x / 2)
     tan_fy = tan_fx / aspect
-    r = np.arange(height, dtype=np.float32)[:, None]
+    r = row_offset + np.arange(n_rows, dtype=np.float32)[:, None]
     px = np.arange(width, dtype=np.float32)[None, :]
     py = (height - 1.0) - r
     for _ in range(spp):
-        jx = rng.random((height, width), np.float32)
-        jy = rng.random((height, width), np.float32)
+        jx = rng.random((n_rows, width), np.float32)
+        jy = rng.random((n_rows, width), np.float32)
         x = (px + jx) / (width / 2) - 1
         y = (py + jy) / (height / 2) - 1
         v = np.stack([x * tan_fx, np.broadcast_to(y * tan_fy, x.shape),
                       np.ones_like(x)], axis=-1)
         d = _normalize(v @ sc.cam_basis.T).reshape(-1, 3).astype(np.float32)
         o = np.broadcast_to(sc.cam_pos, d.shape).astype(np.float32)
-        acc += trace(sc, o, d, depth, rng).reshape(height, width, 3)
-    return (acc / spp).astype(np.float32)
+        sample = trace(sc, o, d, depth, rng).reshape(n_rows, width, 3)
+        acc += sample
+        if return_var:
+            acc2 += sample.astype(np.float64) ** 2
+    mean = (acc / spp).astype(np.float32)
+    if not return_var:
+        return mean
+    var = np.maximum(acc2 / spp - (acc / spp) ** 2, 0.0).astype(np.float32)
+    return mean, var
+
+
+# --- the row-band fan-out ----------------------------------------------------
+# Each band of rows draws from its own PCG64 stream seeded by (seed, band
+# index): another, equally valid sample set than render(seed), since the
+# oracle's comparisons are statistical, never bitwise.
+
+_MP_SCENE = None
+MP_CONTEXTS = ("fork", "spawn", "forkserver")
+
+
+def _mp_init(sc):
+    global _MP_SCENE
+    _MP_SCENE = sc
+
+
+def _mp_band(args):
+    (row0, n_rows, width, height, fov_x, depth, spp, seed, band,
+     return_var) = args
+    # render() takes an integer seed: one child integer of the pair
+    child_seed = int(np.random.SeedSequence([seed, band])
+                     .generate_state(1)[0])
+    return render(_MP_SCENE, width, height, fov_x, depth, spp,
+                  seed=child_seed, return_var=return_var, row_offset=row0,
+                  n_rows=n_rows)
+
+
+def render_mp(dscene, width, height, fov_x, depth, spp, seed=0,
+              return_var=False, workers=None, band_rows=16):
+    """render() fanned out over bands of `band_rows` rows on a pool of
+    `workers` processes (default: one a core); workers <= 1 is render()
+    itself. Band b draws from the stream of (seed, b). The pool starts
+    with the context RT_ORACLE_MP_CONTEXT names ("fork" by default,
+    "spawn" or "forkserver"). The scene is read into numpy here, before
+    the pool starts, so a forked worker never touches the card."""
+    import multiprocessing as mp
+    import os
+
+    workers = workers if workers is not None else (os.cpu_count() or 1)
+    if workers <= 1:
+        return render(dscene, width, height, fov_x, depth, spp, seed=seed,
+                      return_var=return_var)
+    method = os.environ.get("RT_ORACLE_MP_CONTEXT") or "fork"
+    if method not in MP_CONTEXTS:
+        raise ValueError(f"RT_ORACLE_MP_CONTEXT={method!r} is not honoured: "
+                         f"it takes one of {', '.join(MP_CONTEXTS)}")
+    sc = dscene if isinstance(dscene, OracleScene) else OracleScene(dscene)
+    bands = [(row0, min(band_rows, height - row0), width, height, fov_x,
+              depth, spp, seed, b, return_var)
+             for b, row0 in enumerate(range(0, height, band_rows))]
+    with mp.get_context(method).Pool(workers, initializer=_mp_init,
+                                     initargs=(sc,)) as pool:
+        parts = pool.map(_mp_band, bands)
+    if return_var:
+        return (np.concatenate([p[0] for p in parts], axis=0),
+                np.concatenate([p[1] for p in parts], axis=0))
+    return np.concatenate(parts, axis=0)

@@ -71,10 +71,9 @@ def _to_unit(w):
     return _srl(w, 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def uniforms(key, samples, tags, sids, n: int):
-    """[..., n] uniforms addressed by (sample, tag, stream-id) counters
-    under `key` (the word pair of key_from_seed). `samples`/`tags` may be
-    python ints or int tensors, broadcast against the int tensor `sids`."""
+def uniforms_cols(key, samples, tags, sids, n: int):
+    """`uniforms` as a tuple of n [...] columns: the same draws, no final
+    stack (the columnar shade, ops/shading_cols.py, reads them apart)."""
     k0, k1 = key
     dev = sids.device
     a = _i32(samples, dev) ^ _i32(k0, dev)
@@ -84,4 +83,11 @@ def uniforms(key, samples, tags, sids, n: int):
     outs = []
     for blk in range((n + 3) // 4):
         outs.extend(_pcg4d(a, b, c, torch.full_like(c, blk)))
-    return torch.stack([_to_unit(w) for w in outs[:n]], dim=-1)
+    return tuple(_to_unit(w) for w in outs[:n])
+
+
+def uniforms(key, samples, tags, sids, n: int):
+    """[..., n] uniforms addressed by (sample, tag, stream-id) counters
+    under `key` (the word pair of key_from_seed). `samples`/`tags` may be
+    python ints or int tensors, broadcast against the int tensor `sids`."""
+    return torch.stack(uniforms_cols(key, samples, tags, sids, n), dim=-1)

@@ -454,6 +454,156 @@ def test_pool_wave_kernels_bit_equal(cuda, monkeypatch, tmp_path):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+def _compacted_batches(cuda, tmp_path, monkeypatch, **switches):
+    """The sweeps' (words, rays) of one compacted cornell sample (64x64,
+    depth 5) with the integrator's `switches` set, recorded as the route
+    builds them: bounce 0's tiles, then one batch a bounce."""
+    from raytracer_odin_tpu_torch.ops import integrator
+    from raytracer_odin_tpu_torch.ops.integrator import TraceOptions
+    from raytracer_odin_tpu_torch.render import runtime
+    from raytracer_odin_tpu_torch.utils import prng
+
+    host, sc = _cornell_on(cuda, tmp_path)
+    swept = []
+    real_sweep = traverse._sweep_exact
+
+    def sweep(scene, words, rays, g, n_super, cap=256):
+        swept.append((words.clone(), rays.clone()))
+        return real_sweep(scene, words, rays, g, n_super, cap)
+
+    for name, value in switches.items():
+        monkeypatch.setattr(integrator, name, value)
+    monkeypatch.setattr(traverse, "_sweep_exact", sweep)
+    opts = TraceOptions(depth=5, intersector="pallas",
+                        lane_schedule=(4096,) * 4)
+    _, aux = runtime.sample_pass(sc, prng.key_from_seed(0), 0,
+                                 host.cam.fov_x, 64, 64, opts)
+    monkeypatch.undo()
+    assert int(aux["overflow"]) == 0 and len(swept) == 5
+    return sc, swept
+
+
+def _k1_k2_bit_equal(sc, words, rays):
+    _, n_super, aabb8 = traverse.exact_cull_layout(sc)
+    assert torch.equal(pi.cluster_masks_rows(aabb8, rays, n_super),
+                       pi._cluster_masks_plain(aabb8, rays, n_super))
+    counts, lists = traverse.exact_lists(words, n_super)
+    got = pi.intersect_culled_rows(sc.ptri, counts, lists, rays)
+    want = pi._culled_plain(counts, lists, rays, sc.ptri)
+    torch.cuda.synchronize()
+    assert int((want[1] >= 0).sum()) > 100
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_cols_bounce1_kernels_bit_equal(cuda, monkeypatch, tmp_path):
+    """K1 and K2 on the columnar trace's sorted bounce-1 batch (COLS = 1:
+    kernel rows built from the [12, N] column state), each bit-equal to
+    its plain version."""
+    sc, swept = _compacted_batches(cuda, tmp_path, monkeypatch, COLS=1)
+    _k1_k2_bit_equal(sc, *swept[1])
+
+
+@pytest.mark.gpu
+def test_skip_sort_kernels_bit_equal(cuda, monkeypatch, tmp_path):
+    """K1 and K2 on a skip-sort bounce's batch (SORT_EVERY = 2, bounce 2:
+    unsorted, at bounce 1's width, dead lanes as far rays among the live
+    ones), each bit-equal to its plain version."""
+    sc, swept = _compacted_batches(cuda, tmp_path, monkeypatch,
+                                   SORT_EVERY=2)
+    words, rays = swept[2]
+    assert rays.shape[1] == swept[1][1].shape[1]
+    dead = torch.nonzero(rays[3] == 1.0).flatten()
+    assert dead.numel() and int(dead[0]) < rays.shape[1] - dead.numel()
+    _k1_k2_bit_equal(sc, words, rays)
+
+
+def _subprocess(env, code):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    full = dict(os.environ, **env)
+    full["PYTHONPATH"] = os.pathsep.join(
+        [str(root), str(root / "tests"), full.get("PYTHONPATH", "")])
+    return subprocess.run([sys.executable, "-c", code], cwd=root, env=full,
+                          capture_output=True, text=True, timeout=900)
+
+
+@pytest.mark.gpu
+def test_refused_rb_sub_raises_before_launch(cuda):
+    """RT_TPU_RB_SUB=384 (no divisor of RT_TPU_RB=512) stops the port's
+    import with a ValueError naming it: nothing is built or launched."""
+    proc = _subprocess({"RT_TPU_RB_SUB": "384"}, (
+        "import torch\n"
+        "import raytracer_odin_tpu_torch.ops.integrator\n"
+        "print('launched')"))
+    assert proc.returncode != 0 and "launched" not in proc.stdout
+    last = proc.stderr.strip().splitlines()[-1]
+    assert last.startswith("ValueError") and "RT_TPU_RB_SUB" in last
+
+
+_LAYOUT_KERNELS = """
+import numpy as np, torch
+from raytracer_odin_tpu_torch.ops import cuda_build, traverse
+from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
+dev = torch.device("cuda", 0)
+rng = np.random.default_rng(2)
+p = rng.uniform(-5, 5, (900, 3)).astype(np.float32)
+u = rng.uniform(-1, 1, (900, 3)).astype(np.float32)
+v = rng.uniform(-1, 1, (900, 3)).astype(np.float32)
+tris = torch.from_numpy(pi.pad_triangles(p, u, v)).to(dev)
+o = rng.uniform(-8, 8, (4 * pi.RB, 3)).astype(np.float32)
+d = p[rng.integers(0, 900, 4 * pi.RB)] - o
+d /= np.linalg.norm(d, axis=-1, keepdims=True)
+rays, _, _ = pi.pack_rays(torch.from_numpy(o), torch.from_numpy(d))
+rays = rays.to(dev)
+nc = tris.shape[0] // pi.LEAF
+lo = tris[:, 0:3].reshape(nc, pi.LEAF, 3)
+aabb8 = torch.zeros((-(-nc // 32) * 32, 8), device=dev)
+aabb8[:, 0:3] = pi.BIG
+aabb8[:, 3:6] = -pi.BIG
+corners = torch.stack([lo, lo + tris[:, 3:6].reshape(nc, pi.LEAF, 3),
+                       lo + tris[:, 6:9].reshape(nc, pi.LEAF, 3)])
+real = (tris[:, 0] < pi.BIG).reshape(nc, pi.LEAF)[None, :, :, None]
+aabb8[:nc, 0:3] = torch.where(real, corners, pi.BIG).amin((0, 2))
+aabb8[:nc, 3:6] = torch.where(real, corners, -pi.BIG).amax((0, 2))
+words = pi.cluster_masks_rows(aabb8, rays, nc)
+assert torch.equal(words, pi._cluster_masks_plain(aabb8, rays, nc))
+counts, lists = traverse.exact_lists(words, nc, cap=nc)
+for got, want in (
+        (pi.intersect_culled_rows(tris, counts, lists, rays),
+         pi._culled_plain(counts, lists, rays, tris, pi.RB_SUB)),
+        (pi.intersect_brute_rows(tris, rays),
+         pi._culled_plain(torch.full((rays.shape[1] // pi.RB,), -1,
+                                     dtype=torch.int32, device=dev),
+                          torch.zeros((rays.shape[1] // pi.RB, 1),
+                                      dtype=torch.int32, device=dev),
+                          rays, tris, pi.RB))):
+    torch.cuda.synchronize()
+    assert int((want[1] >= 0).sum()) > 100
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+print(cuda_build._SO.name)
+"""
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("env", [{"RT_TPU_LEAF": "32"},
+                                 {"RT_TPU_RB": "256", "RT_TPU_RB_SUB": "128"}],
+                         ids=["leaf32", "rb256_sub128"])
+def test_honoured_layout_kernels_bit_equal(cuda, env):
+    """A layout the JAX package's variables set builds its own library
+    (nvcc with the layout's defines) whose K1, K2 and K3 are bit-equal to
+    their plain versions at that layout."""
+    proc = _subprocess(env, _LAYOUT_KERNELS)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "_".join(env.get(k, dflt) for k, dflt in (
+        ("RT_TPU_LEAF", "64"), ("RT_TPU_RB", "512"),
+        ("RT_TPU_RB_SUB", "256"))) in proc.stdout
+
+
 def _mesh_matches_single(cuda, tmp_path, devices):
     """A 2 x 1 tile mesh over `devices`, compacted with each tile's own
     budgets, is bit-identical to the single-card compacted render on

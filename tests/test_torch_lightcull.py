@@ -192,11 +192,12 @@ def test_culled_pdf_matches_jax_citynight(citynight_pair):
 
 
 def test_many_lights_take_culled_pdf(citynight_pair, monkeypatch):
-    """mixture_pdf takes the culled sum from LIGHT_CULL_MIN lights on, on
-    the CPU too (the JAX package takes the dense sum on its CPU backend),
-    and the mixture agrees with JAX's dense one within the gate."""
+    """mixture_pdf takes the culled sum from light_cull.threshold() lights
+    on, on the CPU too (the JAX package takes the dense sum on its CPU
+    backend), and the mixture agrees with JAX's dense one within the
+    gate."""
     js, ts = citynight_pair
-    assert ts.light_p.shape[0] >= tlc.LIGHT_CULL_MIN
+    assert ts.light_p.shape[0] >= tlc.threshold()
     calls = []
     real = tlc.light_pdf_sum_culled
 
@@ -246,7 +247,7 @@ def test_dense_pdf_lane_steps_bit_equal(grid_pair, lanes):
 
 @pytest.fixture(scope="module")
 def citynight1(tmp_path_factory):
-    """citynight with one window a tower: 288 lights, below LIGHT_CULL_MIN
+    """citynight with one window a tower: 288 lights, below the threshold
     (the dense sum's scenes), windows on faces in three orientations."""
     from raytracer_odin_tpu_torch.io import gltf as tgltf
     from raytracer_odin_tpu_torch.models import assets as tassets

@@ -246,3 +246,30 @@ def test_render_entry_refuses_wrong_device(cube):
         runtime.render_scene(scene, small_cfg(), host.cam.fov_x,
                              device="meta")
     assert jax.default_backend() == "cpu"
+
+
+def test_phase_timer_matches_jax(monkeypatch):
+    """utils/profiling.PhaseTimer against the JAX package's on the same
+    clock: phases summed by name in first-use order, the same report text,
+    the throughput line only with rays and a render phase."""
+    import time
+
+    from raytracer_odin_tpu.utils import profiling as jprof
+    from raytracer_odin_tpu_torch.utils import profiling
+
+    def run(module):
+        ticks = iter([0.0, 0.25, 1.0, 3.5, 4.0, 4.125])
+        monkeypatch.setattr(time, "perf_counter", lambda: next(ticks))
+        t = module.PhaseTimer()
+        for name in ("ingest", "render", "ingest"):
+            with t.phase(name):
+                pass
+        return t
+
+    got, want = run(profiling), run(jprof)
+    assert got.order == want.order == ["ingest", "render"]
+    assert got.phases == want.phases == {"ingest": 0.375, "render": 2.5}
+    assert got.report(5_000_000) == want.report(5_000_000)
+    assert "2.00 Mrays/s" in got.report(5_000_000)
+    assert got.report() == want.report()
+    assert "throughput" not in got.report()

@@ -131,7 +131,8 @@ def test_port_imports_no_jax():
     assert len(files) > 15
     for must in ("cli.py", "__main__.py", "oracle/cpu_reference.py",
                  "render/checkpoint.py", "io/writers.py",
-                 "utils/profiling.py"):
+                 "utils/profiling.py", "ops/shading_cols.py",
+                 "utils/vec3c.py", "utils/env.py"):
         assert pkg / must in files, must
     for path in files:
         tree = ast.parse(path.read_text(), str(path))
