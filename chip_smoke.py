@@ -140,14 +140,30 @@ wall time:
                  but for the pixels grouping_flips explains, the lanes
                  whose path differs without changing their pixel found
                  (live_lane_ids) and explained alike, Mrays/s beside it
- 18. with --profile: one more step of each path under torch.profiler,
+ 18. accuracy    the accuracy harness (raytracer_odin_tpu_torch/accuracy)
+                 on the BASELINE configs at full size: K1 and K2 against
+                 their plain versions on the sorted, compacted bounce-1
+                 batches of cfg3_textured (800x600) and cfg4_envmap
+                 (1024x768); then, launches counted from zero, the
+                 same-seed half of cfg1-cfg5 (through the runtime's own
+                 step, as a user renders), the proxy half of all six
+                 rows at 1024 spp and cfg5's 16 draws of 512 spp, and the
+                 report against out/rmse/ (the JAX package's CPU renders
+                 and the numpy oracle; a missing reference raises): every
+                 row held to same_seed_pass and distribution_agrees (cfg5's
+                 image-mean test the empirical two-sample one), a line a
+                 row with its seconds, the report under chiprun_out/; K1 and
+                 K2 launched once a bounce of every trace, K3-K5 never;
+                 peak memory and the phase's wall time
+ 19. with --profile: one more step of each path under torch.profiler,
      device time by kernel class, kernels a step and the device's busy
      share
- 19. the kernels JSON line (K1-K5 and K1 with its tmax row; each with its
+ 20. the kernels JSON line (K1-K5 and K1 with its tmax row; each with its
      design and registers, its SASS counts, SM clock and issue floors, K2-K5
      with their warp-vote rates; K1 and K2 with their checks on the mesh
      shard's, the pool wave's, the refill iteration's, the columnar
-     bounce-1 and the skip-sort bounce's batches; K5 on the columnar
+     bounce-1, the skip-sort bounce's and the accuracy configs' bounce-1
+     batches, and their launches in the accuracy phase; K5 on the columnar
      citynight batch), then the {"ok": true, ...} line.
 
 The smoke refuses to start with RT_TPU_TWO_PHASE, RT_TPU_COLS or
@@ -1659,6 +1675,14 @@ def main(argv=None) -> int:
             f"{paths['sort_every']['mrays']:.3f} Mrays/s (sorted every "
             f"bounce {demo['mrays']:.3f}; {card})")
 
+    # 18. the accuracy harness on the BASELINE configs
+    s = time.perf_counter()
+    acc = accuracy_path(rt, integ, trav, pi, dev, counters, reps, card,
+                        rehearsal)
+    ph.done("accuracy", s, f"{acc['records']} rows pass; harness "
+            f"{acc['render_s']:.3f} s, peak {acc['peak_gib']:.3f} GiB; "
+            f"launches {json.dumps(acc['launches'])} ({card})")
+
     if args.profile:
         s = time.perf_counter()
         profile_step(rt, res.stats, scene, cfg, fov_x,
@@ -1692,7 +1716,8 @@ def main(argv=None) -> int:
         return add_floors(m, sass.get(key), mhz, n_sm)
 
     def by_path(k):
-        return {p: v["launches"][k] for p, v in paths.items()}
+        return dict({p: v["launches"][k] for p, v in paths.items()},
+                    accuracy=acc["launches"][k])
 
     mhz1, mhz2 = k1_b1.get("sm_clock_mhz"), k2_b1.get("sm_clock_mhz")
     k1_tmax = floored("K1 tmax", two["k1_tmax"],
@@ -1727,7 +1752,9 @@ def main(argv=None) -> int:
                "pool_wave": paths["pool"]["k1"],
                "refill_iteration": paths["refill"]["k1"],
                "cols_bounce1": paths["cols"]["k1"],
-               "sort_every_skip_bounce": paths["sort_every"]["k1"]}),
+               "sort_every_skip_bounce": paths["sort_every"]["k1"],
+               **{f"accuracy_{n}_bounce1": floored("K1", c["K1"], mhz1)
+                  for n, c in acc["checks"].items()}}),
         # K1 with its tmax row: the demo's sorted bounce-1 batch with
         # phase A's t in row 6, on the twophase path
         entry("K1 cluster_masks_rows tmax_row", "K1 tmax",
@@ -1752,7 +1779,9 @@ def main(argv=None) -> int:
                "pool_wave": paths["pool"]["k2"],
                "refill_iteration": paths["refill"]["k2"],
                "cols_bounce1": paths["cols"]["k2"],
-               "sort_every_skip_bounce": paths["sort_every"]["k2"]}),
+               "sort_every_skip_bounce": paths["sort_every"]["k2"],
+               **{f"accuracy_{n}_bounce1": floored("K2", c["K2"], mhz2)
+                  for n, c in acc["checks"].items()}}),
         # K3: the brute path's bounce-0 camera rays (every bounce sweeps
         # every cluster, uncompacted)
         entry("K3 intersect_brute_rows", "K3",
@@ -3058,6 +3087,130 @@ def sort_every_path(rt, integ, trav, pi, scene, cfg, fov_x, dev, counters,
                 launches=r["launches"], per_step=r["per_step"],
                 calibration=r["calibration"], max_diff=diff, flips=flips,
                 lane_flips=lane_flips_, syncs=syncs)
+
+
+# The configs of the accuracy phase whose sorted, compacted bounce-1
+# batches K1 and K2 are held against their plain versions: textured
+# glossy paths and the env map's escaping lanes.
+ACCURACY_BATCHES = ("cfg3_textured", "cfg4_envmap")
+# The report of the accuracy phase, under the gitignored chiprun_out/.
+ACCURACY_REPORT = ROOT / "chiprun_out" / "accuracy_report.jsonl"
+# The report's keys each row of the accuracy phase prints.
+ACCURACY_KEYS = ("same_seed_rmse", "same_seed_over_indep_floor",
+                 "same_seed_mean_shift_z", "oracle_mean_shift_z",
+                 "rmse_over_floor", "frac_z_gt4", "mean_test",
+                 "same_seed_pass", "distribution_agrees")
+
+
+def accuracy_launches(configs, render, rows, draws, chunk) -> int:
+    """K1 (and K2) launches the harness makes over `rows` on the card: one
+    a bounce of every trace. The same-seed half goes through the runtime's
+    own step with RenderConfig's default compact "off", a trace a sample;
+    the proxy and the draws trace a step of render.step_samples samples
+    at once (render.batched_step)."""
+    n = 0
+    for name, _s, w, h, depth, _c, ss_spp, (pw, ph, _p) in rows:
+        if name not in configs.NO_SAME_SEED:
+            n += depth * ss_spp
+        spp = configs.PROXY_SPP
+        n += depth * spp // render.step_samples(spp, pw * ph)
+        if name in configs.DRAW_CONFIGS:
+            n += depth * draws * chunk // render.step_samples(chunk, pw * ph)
+    return n
+
+
+def accuracy_path(rt, integ, trav, pi, dev, counters, reps, card,
+                  rehearsal):
+    """Phase 18: the accuracy harness (raytracer_odin_tpu_torch/accuracy)
+    on the five BASELINE configs at full size: K1 and K2 against their
+    plain versions on the sorted, compacted bounce-1 batches of
+    ACCURACY_BATCHES; then, launches counted from zero, the same-seed half
+    of cfg1-cfg5 (through the runtime's own step), the
+    proxy half of all six rows and cfg5's 16 draws of
+    512 spp, and the report against out/rmse/ (the JAX package's CPU
+    renders and the oracle; a missing reference raises, naming the file):
+    every row held to same_seed_pass and distribution_agrees, one line a
+    row; K1 and K2 launched accuracy_launches times each, K3-K5 never;
+    peak memory. A CPU rehearsal runs cfg1_cube alone, its kernel batches
+    at its own small frame."""
+    import torch
+
+    from raytracer_odin_tpu_torch.accuracy import configs, render, report
+    from raytracer_odin_tpu_torch.config import RenderConfig
+    from raytracer_odin_tpu_torch.utils import prng
+
+    rows = ([configs.row("cfg1_cube")] if rehearsal
+            else list(configs.CONFIGS))
+    configs.require_references(rows)
+    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_rmse_"))
+    harness = render.Harness(dev, out_dir, log=lambda s: print(
+        f"  [accuracy] {s}", flush=True))
+    checks = {}
+    for name in ACCURACY_BATCHES:
+        _, sname, w, h, depth, _c, _ss, _p = configs.row(name)
+        if rehearsal:
+            w, h = 64, 36
+        host, scene = harness.scene(sname)
+        cfg = RenderConfig(width=w, height=h, ray_depth=depth, samples=1,
+                           samples_per_step=1, seed=0,
+                           intersector="pallas", compact="auto")
+        kb = kernel_batches(rt, integ, trav, prng, pi, scene, cfg,
+                            host.cam.fov_x * (w / h), dev)
+        checks[name] = {
+            "K1": measure_k1(pi, kb["aabb8"], kb["rays1"], kb["n_super"],
+                             dev, reps),
+            "K2": measure_sweep(pi, trav, scene, kb["words1"], kb["rays1"],
+                                kb["g"], kb["n_super"], dev, reps)}
+        del kb
+        for k in ("K1", "K2"):
+            print(f"  [accuracy] {name} {k} bounce 1: "
+                  f"{json.dumps(checks[name][k])}", flush=True)
+
+    reset_counts(counters)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    draws, chunk = 16, 512
+    t0 = time.perf_counter()
+    for name, *_ in rows:
+        harness.same_seed(name)
+        harness.proxy(name)
+        if name in configs.DRAW_CONFIGS:
+            harness.draws(name, draws, chunk, var_sweep=False)
+    sync(dev)
+    render_s = time.perf_counter() - t0
+    launches = read_counts(counters)
+    peak = (torch.cuda.max_memory_allocated(dev) / 2**30
+            if dev.type == "cuda" else 0.0)
+    records = report.report(out_dir, None, rows, card, log=lambda s: None)
+    ACCURACY_REPORT.parent.mkdir(parents=True, exist_ok=True)
+    shutil.copyfile(out_dir / "report.jsonl", ACCURACY_REPORT)
+    for rec in records:
+        line = {k: rec[k] for k in ACCURACY_KEYS if k in rec}
+        if "oracle_emp" in rec:
+            line["mean_shift_z_emp"] = rec["oracle_emp"]["mean_shift_z_emp"]
+        line["seconds"] = round(harness.seconds.get(rec["config"], 0.0), 3)
+        print(f"  [accuracy] {rec['config']}: {json.dumps(line)}",
+              flush=True)
+    bad = report.failures(records)
+    if bad:
+        raise AssertionError(f"accuracy: rows fail their gates: {bad}")
+    for rec in records:
+        if (rec["config"] in configs.DRAW_CONFIGS
+                and rec.get("mean_test") != "empirical_two_sample"):
+            raise AssertionError(f"accuracy: {rec['config']}'s mean test is "
+                                 "not the empirical two-sample test")
+    want = accuracy_launches(configs, render, rows, draws, chunk)
+    print(f"  [accuracy] launches {json.dumps(launches)} (K1 and K2 "
+          f"{want} each wanted); harness {render_s:.3f} s; peak device "
+          f"memory {peak:.3f} GiB ({card})", flush=True)
+    if not rehearsal and (launches["K1"] != want or launches["K2"] != want
+                          or any(launches[k] for k in ("K1 tmax", "K3",
+                                                       "K4", "K5"))):
+        raise AssertionError(f"accuracy: launches {launches}, want K1 and "
+                             f"K2 {want} each and no other kernel")
+    shutil.rmtree(out_dir)
+    return {"launches": launches, "checks": checks, "render_s": render_s,
+            "peak_gib": peak, "records": len(records)}
 
 
 def live_lane_ids(rt, integ, scene, cfg, fov_x, schedule, sample):

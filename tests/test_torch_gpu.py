@@ -704,3 +704,40 @@ def test_cli_every_card(cuda, tmp_path):
         assert rc == 0
         pngs.append(out.read_bytes())
     assert pngs[0] == pngs[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene,depth", [("textured", 8), ("envmap", 8)])
+def test_accuracy_step_sizes_bit_equal(cuda, monkeypatch, tmp_path, scene,
+                                       depth):
+    """The accuracy harness's proxy and draw step (a step's samples traced
+    as one batch of lanes through K1 + K2) gives the same statistics on
+    the card whether a step holds 1 or 16 samples, and the same as the
+    runtime's own uncompacted step, mean and variance; it launches K1 and
+    K2 once a bounce of each trace."""
+    from raytracer_odin_tpu_torch.accuracy import configs, render
+    from raytracer_odin_tpu_torch.config import RenderConfig
+    from raytracer_odin_tpu_torch.render import runtime as rt
+
+    monkeypatch.setattr(configs, "SCENE_DIR", tmp_path)
+    host, sc = configs.load_scene(scene, cuda)
+    w, h = 128, 96
+    fov = host.cam.fov_x * (w / h)
+    one = render.render_stats(sc, fov, w, h, depth, 16, device=cuda,
+                              batch=1)
+    k1, k2 = pi.cluster_masks_rows.launches, pi.intersect_culled_rows.launches
+    batched = render.render_stats(sc, fov, w, h, depth, 16, device=cuda,
+                                  batch=16)
+    assert pi.cluster_masks_rows.launches - k1 == depth
+    assert pi.intersect_culled_rows.launches - k2 == depth
+    cfg = RenderConfig(width=w, height=h, ray_depth=depth, samples=16,
+                       samples_per_step=8, debug_features=False,
+                       compact="off")
+    st = rt.render_scene(sc, cfg, fov, device=cuda).stats
+    n = st.count[0].cpu().numpy().astype(np.float64)[..., None]
+    mean = st.total[0].cpu().numpy().astype(np.float64) / n
+    var = np.maximum(st.total_sq[0].cpu().numpy().astype(np.float64) / n
+                     - mean**2, 0.0)
+    for a, b, c in zip(one, batched, (mean, var)):
+        assert np.array_equal(a, b)
+        assert np.array_equal(a, c.astype(np.float32))

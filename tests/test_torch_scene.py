@@ -132,7 +132,8 @@ def test_port_imports_no_jax():
     for must in ("cli.py", "__main__.py", "oracle/cpu_reference.py",
                  "render/checkpoint.py", "io/writers.py",
                  "utils/profiling.py", "ops/shading_cols.py",
-                 "utils/vec3c.py", "utils/env.py"):
+                 "utils/vec3c.py", "utils/env.py", "accuracy/render.py",
+                 "accuracy/report.py"):
         assert pkg / must in files, must
     for path in files:
         tree = ast.parse(path.read_text(), str(path))
