@@ -328,6 +328,8 @@ def main(argv=None, device="cuda") -> int:
         mrays = res.rays_cast / max(sum(res.trial_seconds), 1e-9) / 1e6
         print(f"Throughput: {mrays:.2f} Mrays/s "
               f"({res.rays_cast / 1e6:.1f}M rays cast)")
+    if not args.quiet:
+        print(res.phases.report())
 
     if args.checkpoint:
         checkpoint.save(args.checkpoint, res.stats, res.samples_done)

@@ -32,6 +32,7 @@ import numpy as np
 
 from raytracer_odin_tpu_torch.io import images as images_io
 from raytracer_odin_tpu_torch.models.scene import Camera, HostMaterial, HostScene, HostTexture
+from raytracer_odin_tpu_torch.utils import profiling
 
 _COMPONENT_DTYPES = {
     5120: np.int8,
@@ -215,8 +216,13 @@ def _cofactor3(m: np.ndarray) -> np.ndarray:
 
 
 def read_gltf(path) -> HostScene:
-    """Parse a glTF/GLB file into a HostScene (read_gltf, input.odin:13)."""
-    path = Path(path)
+    """Parse a glTF/GLB file into a HostScene (read_gltf, input.odin:13).
+    Tallied as the "gltf_read" span."""
+    with profiling.span("gltf_read"):
+        return _read_gltf(Path(path))
+
+
+def _read_gltf(path: Path) -> HostScene:
     doc, buffers = _parse_container(path)
     g = _Gltf(doc, buffers, path.parent)
     scene = HostScene()

@@ -11,8 +11,6 @@ upload them as a torch DeviceScene.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 
 from raytracer_odin_tpu_torch.models.scene import (
@@ -27,6 +25,7 @@ from raytracer_odin_tpu_torch.ops import culling, light_cull
 from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
 from raytracer_odin_tpu_torch.ops import texture as texture_mod
 from raytracer_odin_tpu_torch.ops.geometry import aabb_of_triangles
+from raytracer_odin_tpu_torch.utils import profiling
 
 EMISSIVE_EPS = 1e-6  # raytracer.odin:64
 
@@ -66,11 +65,11 @@ def scene_arrays(host: HostScene, env_map: HostTexture | None = None,
         light_p, light_u, light_v, light_ng, light_pdf_factor)
     lcl_lo, lcl_hi = light_cull.light_cluster_aabbs(light_rows)
 
-    t0 = time.perf_counter()
-    lo, hi = aabb_of_triangles(host.p, host.u, host.v)
-    flat = bvh_mod.build_flat_bvh(lo, hi)
+    with profiling.span("bvh_build") as built:
+        lo, hi = aabb_of_triangles(host.p, host.u, host.v)
+        flat = bvh_mod.build_flat_bvh(lo, hi)
     if verbose:
-        print(f"Scene BVH built in {time.perf_counter() - t0:.3f}s "
+        print(f"Scene BVH built in {built.seconds:.3f}s "
               f"({flat.num_nodes} nodes over {n_tri} triangles)")
     perm = flat.perm if n_tri else np.zeros(0, np.int64)
 
@@ -204,6 +203,8 @@ def scene_arrays(host: HostScene, env_map: HostTexture | None = None,
 def finish_scene(host: HostScene, env_map: HostTexture | None = None,
                  verbose: bool = False, device="cuda") -> DeviceScene:
     """Build light list + BVH order + kernel layouts and upload everything
-    as a DeviceScene on `device`."""
-    arrays, statics = scene_arrays(host, env_map, verbose=verbose)
-    return scene_from_numpy(arrays, device=device, **statics)
+    as a DeviceScene on `device`. Tallied as the "scene_build" span (the
+    BVH's build within it as "bvh_build")."""
+    with profiling.span("scene_build"):
+        arrays, statics = scene_arrays(host, env_map, verbose=verbose)
+        return scene_from_numpy(arrays, device=device, **statics)

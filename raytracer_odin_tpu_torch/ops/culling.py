@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from raytracer_odin_tpu_torch.ops.pallas_intersect import BIG, LEAF
+from raytracer_odin_tpu_torch.utils import profiling
 
 
 def cluster_aabbs(tri_lo: np.ndarray, tri_hi: np.ndarray) -> tuple:
@@ -163,6 +164,7 @@ def build_lists(hit_mask, cap: int | None = None, near=None,
         if not overflow_ids:
             counts = torch.where(counts > cap, -1, counts)
         elif nb:
+            profiling.count("host_syncs")
             width = max(cap, int(counts.max()))
         lists = lists[:, :width]
     return counts, lists.contiguous()

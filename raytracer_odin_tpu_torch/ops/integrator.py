@@ -45,7 +45,7 @@ from raytracer_odin_tpu_torch.ops import (
     traverse,
 )
 from raytracer_odin_tpu_torch.ops.geometry import BIG, RAY_EPS
-from raytracer_odin_tpu_torch.utils import prng
+from raytracer_odin_tpu_torch.utils import prng, profiling
 from raytracer_odin_tpu_torch.utils import vec3c as v3c
 from raytracer_odin_tpu_torch.utils.env import env_int
 from raytracer_odin_tpu_torch.utils.math3d import (
@@ -248,24 +248,27 @@ def _shade_vertex(scene, o, d, t, tri_idx, alive, uniforms, has_lights,
     Returns (new_o, new_d, throughput, radiance, alive, ev, hit, missed);
     new_o/new_d are garbage on dead lanes (masked by `alive`). ev, hit and
     missed are what the shade computed anyway: the probes and the ray log
-    read them, the compacted trace drops them."""
-    hit = (tri_idx >= 0) & alive
-    missed = (~(tri_idx >= 0)) & alive
+    read them, the compacted trace drops them. Tallied as the "shade"
+    span."""
+    with profiling.span("shade"):
+        hit = (tri_idx >= 0) & alive
+        missed = (~(tri_idx >= 0)) & alive
 
-    if scene.env_tex >= 0:
-        env = texture.sample_env(scene, d, scene.env_tex)
+        if scene.env_tex >= 0:
+            env = texture.sample_env(scene, d, scene.env_tex)
+            radiance = radiance + torch.where(
+                missed[..., None], throughput * env, 0.0
+            )
+
+        ev = eval_bounce(scene, o, d, t, tri_idx, uniforms, has_lights,
+                         light_chunk)
         radiance = radiance + torch.where(
-            missed[..., None], throughput * env, 0.0
+            hit[..., None], throughput * ev["material"]["emission"], 0.0
         )
-
-    ev = eval_bounce(scene, o, d, t, tri_idx, uniforms, has_lights,
-                     light_chunk)
-    radiance = radiance + torch.where(
-        hit[..., None], throughput * ev["material"]["emission"], 0.0
-    )
-    cont = ev["cont"] & hit
-    ratio = ev["value"] / ev["pdf"][..., None]
-    throughput = torch.where(cont[..., None], throughput * ratio, throughput)
+        cont = ev["cont"] & hit
+        ratio = ev["value"] / ev["pdf"][..., None]
+        throughput = torch.where(cont[..., None], throughput * ratio,
+                                 throughput)
     return (ev["material"]["pos"], ev["new_d"], throughput, radiance, cont,
             ev, hit, missed)
 
@@ -281,32 +284,35 @@ def _shade_vertex_cols(scene, o, d, t, tri_idx, alive, uniforms, has_lights,
     in one splat.
 
     Returns (pos, new_d, throughput, radiance, cont); pos and new_d are
-    garbage on dead lanes (masked by `cont`)."""
-    hit = (tri_idx >= 0) & alive
-    missed = (~(tri_idx >= 0)) & alive
+    garbage on dead lanes (masked by `cont`). Tallied as the "shade"
+    span."""
+    with profiling.span("shade"):
+        hit = (tri_idx >= 0) & alive
+        missed = (~(tri_idx >= 0)) & alive
 
-    if scene.env_tex >= 0:
-        env = texture.sample_env_cols(scene, d, scene.env_tex)
-        radiance = radiance + torch.where(missed, throughput * env, 0.0)
+        if scene.env_tex >= 0:
+            env = texture.sample_env_cols(scene, d, scene.env_tex)
+            radiance = radiance + torch.where(missed, throughput * env, 0.0)
 
-    m = _point_material(scene, v3c.stack(o), v3c.stack(d), t, tri_idx)
-    rows = v3c.splat(torch.cat([m["normal"], m["color"], m["emission"]],
-                               dim=-1))
-    normal = torch.where(m["inside"], -rows[0:3], rows[0:3])
-    color, emission = rows[3:6], rows[6:9]
-    pos = o + d * t
-    rough, metal = m["roughness"], m["metallic"]
+        m = _point_material(scene, v3c.stack(o), v3c.stack(d), t, tri_idx)
+        rows = v3c.splat(torch.cat([m["normal"], m["color"],
+                                    m["emission"]], dim=-1))
+        normal = torch.where(m["inside"], -rows[0:3], rows[0:3])
+        color, emission = rows[3:6], rows[6:9]
+        pos = o + d * t
+        rough, metal = m["roughness"], m["metallic"]
 
-    new_d = shading_cols.sample_direction(scene, pos, normal, rough, d,
-                                          uniforms, has_lights)
-    pdf = shading_cols.mixture_pdf(scene, pos, normal, rough, d, new_d,
-                                   has_lights, light_chunk=light_chunk)
-    value = shading_cols.shade(color, normal, metal, rough, d, new_d)
+        new_d = shading_cols.sample_direction(scene, pos, normal, rough, d,
+                                              uniforms, has_lights)
+        pdf = shading_cols.mixture_pdf(scene, pos, normal, rough, d, new_d,
+                                       has_lights, light_chunk=light_chunk)
+        value = shading_cols.shade(color, normal, metal, rough, d, new_d)
 
-    radiance = radiance + torch.where(hit, throughput * emission, 0.0)
-    # Continuation rule (raytracer.odin:495): NaN compares false.
-    cont = (v3c.norm_l1(value) / pdf > 1e-5) & hit
-    throughput = torch.where(cont, throughput * (value / pdf), throughput)
+        radiance = radiance + torch.where(hit, throughput * emission, 0.0)
+        # Continuation rule (raytracer.odin:495): NaN compares false.
+        cont = (v3c.norm_l1(value) / pdf > 1e-5) & hit
+        throughput = torch.where(cont, throughput * (value / pdf),
+                                 throughput)
     return pos, new_d, throughput, radiance, cont
 
 
@@ -320,6 +326,7 @@ def check_live_nans(sample, bounce: int, stage: str, stream_ids, checks):
         if nan.dim() > live.dim():
             nan = nan.any(dim=-1)
         bad = nan & live
+        profiling.count("host_syncs")
         if bool(bad.any()):
             ids = stream_ids[bad].reshape(-1)[:8].tolist()
             raise FloatingPointError(
@@ -510,20 +517,22 @@ def sort_lanes(state, alive, aabb8, n_super: int, budget: int):
 
     Returns (the sorted state [N, 12], perm [N] source lane of each sorted
     lane, the batch's RAY_EPS-offset kernel rows [8, s_width] and their
-    mask words [W, s_width])."""
+    mask words [W, s_width]). Tallied as the "sort" span."""
     rb = pi.RB
     width = state.shape[0]
     s_width = max(rb, min(width, (int(budget) // rb) * rb))
-    rays_pre = _far_rows(state, alive)
-    words_p = pi.cluster_masks_rows(aabb8, rays_pre, n_super)
-    keys, word_slots = traverse._lex_sort_keys(
-        alive, traverse._ray_octant(state[:, 3:6]),
-        [words_p[i] for i in range(words_p.shape[0])], n_super,
-    )
-    perm = traverse.lex_sort_perm(keys)
-    state = state[perm]
-    words = torch.stack([keys[i][perm[:s_width]] for i in word_slots], dim=0)
-    return state, perm, _rows(state[:s_width]), words
+    with profiling.span("sort"):
+        rays_pre = _far_rows(state, alive)
+        words_p = pi.cluster_masks_rows(aabb8, rays_pre, n_super)
+        keys, word_slots = traverse._lex_sort_keys(
+            alive, traverse._ray_octant(state[:, 3:6]),
+            [words_p[i] for i in range(words_p.shape[0])], n_super,
+        )
+        perm = traverse.lex_sort_perm(keys)
+        state = state[perm]
+        words = torch.stack([keys[i][perm[:s_width]] for i in word_slots],
+                            dim=0)
+        return state, perm, _rows(state[:s_width]), words
 
 
 def _rows(state):
@@ -573,23 +582,27 @@ def sort_lanes_cols(state, alive, aabb8, n_super: int, budget: int):
     every lane, one lex_sort_perm permutation gathers the columns, and the
     batch is the first `budget` lanes rounded down to RB, within [RB, N].
     Returns (the sorted state [12, N], perm [N], the batch's kernel rows
-    [8, s_width], their mask words [W, s_width])."""
+    [8, s_width], their mask words [W, s_width]). Tallied as the "sort"
+    span."""
     rb = pi.RB
     width = state.shape[1]
     s_width = max(rb, min(width, (int(budget) // rb) * rb))
-    rays_pre = _far_rows_cols(state, alive)
-    words_p = pi.cluster_masks_rows(aabb8, rays_pre, n_super)
-    dc = state[3:6]
-    octant = ((dc[0] < 0).to(torch.int32) + 2 * (dc[1] < 0).to(torch.int32)
-              + 4 * (dc[2] < 0).to(torch.int32))
-    keys, word_slots = traverse._lex_sort_keys(
-        alive, octant, [words_p[i] for i in range(words_p.shape[0])],
-        n_super,
-    )
-    perm = traverse.lex_sort_perm(keys)
-    state = state[:, perm]
-    words = torch.stack([keys[i][perm[:s_width]] for i in word_slots], dim=0)
-    return state, perm, _rows_cols(state[:, :s_width]), words
+    with profiling.span("sort"):
+        rays_pre = _far_rows_cols(state, alive)
+        words_p = pi.cluster_masks_rows(aabb8, rays_pre, n_super)
+        dc = state[3:6]
+        octant = ((dc[0] < 0).to(torch.int32)
+                  + 2 * (dc[1] < 0).to(torch.int32)
+                  + 4 * (dc[2] < 0).to(torch.int32))
+        keys, word_slots = traverse._lex_sort_keys(
+            alive, octant, [words_p[i] for i in range(words_p.shape[0])],
+            n_super,
+        )
+        perm = traverse.lex_sort_perm(keys)
+        state = state[:, perm]
+        words = torch.stack([keys[i][perm[:s_width]] for i in word_slots],
+                            dim=0)
+        return state, perm, _rows_cols(state[:, :s_width]), words
 
 
 def _trace_compacted_cols(scene, o, d, key, sample, opts: TraceOptions,
@@ -678,17 +691,21 @@ def _trace_compacted_cols(scene, o, d, key, sample, opts: TraceOptions,
         state = torch.cat(cols)
 
     # ---- merge: each lane id appears exactly once ----
-    retired_iota.append(iota)
-    retired_rad.append(state[9:12])
-    merged = torch.empty((3, n0p), dtype=torch.float32, device=dev)
-    merged[:, torch.cat(retired_iota).long()] = torch.cat(retired_rad, dim=1)
-    radiance = v3c.stack(merged[:, :n0]).reshape(batch_shape + (3,))
+    with profiling.span("merge"):
+        retired_iota.append(iota)
+        retired_rad.append(state[9:12])
+        merged = torch.empty((3, n0p), dtype=torch.float32, device=dev)
+        merged[:, torch.cat(retired_iota).long()] = torch.cat(retired_rad,
+                                                              dim=1)
+        radiance = v3c.stack(merged[:, :n0]).reshape(batch_shape + (3,))
     aux = {
         "rays_cast": rays,
         "overflow": overflow,
         "alive_counts": torch.stack(alive_counts),
     }
     return radiance, aux
+
+
 def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions,
                      stream_ids):
     """Dead-lane-compacted wavefront (TraceOptions.lane_schedule).
@@ -789,12 +806,13 @@ def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions,
         state = torch.cat([o2, d2, thr, rad], dim=1)
 
     # ---- merge: each lane id appears exactly once ----
-    retired_iota.append(iota)
-    retired_rad.append(state[:, 9:12])
-    all_iota = torch.cat(retired_iota).long()
-    merged = torch.empty((n0p, 3), dtype=torch.float32, device=dev)
-    merged[all_iota] = torch.cat(retired_rad, dim=0)
-    radiance = merged[:n0].reshape(batch_shape + (3,))
+    with profiling.span("merge"):
+        retired_iota.append(iota)
+        retired_rad.append(state[:, 9:12])
+        all_iota = torch.cat(retired_iota).long()
+        merged = torch.empty((n0p, 3), dtype=torch.float32, device=dev)
+        merged[all_iota] = torch.cat(retired_rad, dim=0)
+        radiance = merged[:n0].reshape(batch_shape + (3,))
     aux = {
         "rays_cast": rays,
         "overflow": overflow,

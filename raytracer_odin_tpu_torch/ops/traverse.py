@@ -38,6 +38,7 @@ from raytracer_odin_tpu_torch.ops.geometry import (
     intersect_aabb,
     intersect_triangle,
 )
+from raytracer_odin_tpu_torch.utils import profiling
 from raytracer_odin_tpu_torch.utils.env import env_int
 from raytracer_odin_tpu_torch.utils.math3d import device_vector
 
@@ -299,15 +300,16 @@ def cast_presorted_rows(scene, rays, words):
     lane order. The kernels return only the hit decision (the JAX
     package's zero bu/bv are not carried: barycentrics are recomputed at
     shade time). With TWO_PHASE_K > 0 a one-level resident scene culls in
-    two phases."""
+    two phases. Tallied as the "cast" span."""
     n = rays.shape[1]
-    g, n_super, aabb8 = exact_cull_layout(scene)
-    if TWO_PHASE_K > 0 and g == 1 and not scene.stream:
-        out = _two_phase_exact(scene, rays, words, n_super, aabb8)
-    else:
-        out = _sweep_exact(scene, words, rays, g, n_super)
-    t, idx = pi.unpack_hits(out, (n,), n)
-    return torch.where(idx >= 0, t + RAY_EPS, BIG), idx
+    with profiling.span("cast"):
+        g, n_super, aabb8 = exact_cull_layout(scene)
+        if TWO_PHASE_K > 0 and g == 1 and not scene.stream:
+            out = _two_phase_exact(scene, rays, words, n_super, aabb8)
+        else:
+            out = _sweep_exact(scene, words, rays, g, n_super)
+        t, idx = pi.unpack_hits(out, (n,), n)
+        return torch.where(idx >= 0, t + RAY_EPS, BIG), idx
 
 
 def sort_exact(scene, o2, d2, alive_f, aabb8, n_super: int):
@@ -547,15 +549,17 @@ def cast_rays(scene, o, d, *, intersector: str = "auto",
     """Intersector dispatch: "pallas", "pallas_brute", "brute", "bvh", or
     "auto" (resolve_intersector). sort and alive are honoured by "pallas"
     only (the coherent re-bucketing of secondary rays); the other
-    intersectors do not depend on lane order."""
+    intersectors do not depend on lane order. Tallied as the "cast"
+    span."""
     which = resolve_intersector(intersector, scene.tri_p.shape[0], o.device,
                                 brute_max_tris)
-    if which == "pallas":
-        return cast_rays_pallas(scene, o, d, sort=sort, alive=alive)
-    if which == "pallas_brute":
-        return cast_rays_pallas(scene, o, d, culled=False)
-    if which == "brute":
-        return cast_rays_brute(scene, o, d, chunk=brute_chunk)
-    if which == "bvh":
-        return cast_rays_bvh(scene, o, d)
+    with profiling.span("cast"):
+        if which == "pallas":
+            return cast_rays_pallas(scene, o, d, sort=sort, alive=alive)
+        if which == "pallas_brute":
+            return cast_rays_pallas(scene, o, d, culled=False)
+        if which == "brute":
+            return cast_rays_brute(scene, o, d, chunk=brute_chunk)
+        if which == "bvh":
+            return cast_rays_bvh(scene, o, d)
     raise ValueError(f"unknown intersector {intersector!r}")

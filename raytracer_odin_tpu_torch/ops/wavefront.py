@@ -41,7 +41,7 @@ import torch
 from raytracer_odin_tpu_torch.ops import texture, traverse
 from raytracer_odin_tpu_torch.ops.integrator import TraceOptions, eval_bounce
 from raytracer_odin_tpu_torch.render.runtime import generate_rays
-from raytracer_odin_tpu_torch.utils import prng
+from raytracer_odin_tpu_torch.utils import prng, profiling
 
 
 class PoolStats(NamedTuple):
@@ -168,9 +168,10 @@ def render_pool_step(scene, pstats: PoolStats, key, sample_start: int, *,
         last[torch.where(is_last, lane_pixel, spare_row)] = radiance
 
         waves += 1
-        if waves >= min_waves and not bool((next_item < total_items)
-                                           | alive.any()):
-            break
+        if waves >= min_waves:
+            profiling.count("host_syncs")
+            if not bool((next_item < total_items) | alive.any()):
+                break
 
     for dst, src in zip(pstats, (first, last, total, total_sq)):
         dst.copy_(src[:n])

@@ -46,6 +46,7 @@ from raytracer_odin_tpu_torch.models.scene import (
 )
 from raytracer_odin_tpu_torch.ops.integrator import compaction_applies
 from raytracer_odin_tpu_torch.render import accum, runtime
+from raytracer_odin_tpu_torch.utils import profiling
 
 STATS_FIELDS = ("first", "last", "total", "total_sq", "count")
 
@@ -109,16 +110,19 @@ class ReplicatedScene(dict):
 
 def replicate_scene(scene, mesh: Mesh) -> ReplicatedScene:
     """The scene on every distinct device of the mesh, copied once (the
-    scene itself where it already lives there)."""
+    scene itself where it already lives there). Tallied as the
+    "replicate" span."""
     out = ReplicatedScene()
-    for dev in mesh.distinct:
-        if scene.device == dev:
-            out[dev] = scene
-            continue
-        out[dev] = dataclasses.replace(
-            scene, **{f: getattr(scene, f).to(dev) for f in TENSOR_FIELDS},
-            bvh=DeviceBVH(**{f: getattr(scene.bvh, f).to(dev)
-                             for f in BVH_FIELDS}))
+    with profiling.span("replicate"):
+        for dev in mesh.distinct:
+            if scene.device == dev:
+                out[dev] = scene
+                continue
+            out[dev] = dataclasses.replace(
+                scene, **{f: getattr(scene, f).to(dev)
+                          for f in TENSOR_FIELDS},
+                bvh=DeviceBVH(**{f: getattr(scene.bvh, f).to(dev)
+                                 for f in BVH_FIELDS}))
     return out
 
 
@@ -170,7 +174,8 @@ class ShardedStep:
     is replicate_scene's, `stats` shard_stats'. info sums every shard's
     [rays cast, overflow, live lanes entering each bounce] on tile 0's
     device: the exact global counts (rows padded to padded_height count as
-    rendered rows, as in the JAX package).
+    rendered rows, as in the JAX package). Each tile's body is tallied as
+    the "tile" span.
 
     lane_schedule: one tuple of lane budgets a tile (None: uncompacted)."""
 
@@ -227,24 +232,25 @@ class ShardedStep:
         info_dev = self.mesh.devices[0][0]
         info = None
         for t in range(n_tile):
-            block = stats.blocks[t]
-            tdev = block.count.device
-            is_first = (block.count == 0)[..., None]
-            parts = [self._shard(scene, t, s, key, sample_start,
-                                 block if s == 0 else None)
-                     for s in range(n_spp)]
-            # spp shard 0 folded into the block in place; add the others
-            # there in spp order
-            for total, total_sq, _, _, _ in parts[1:]:
-                block.total += total.to(tdev)
-                block.total_sq += total_sq.to(tdev)
-            first = parts[0][2]
-            block.first.copy_(torch.where(is_first, first, block.first))
-            block.last.copy_(parts[-1][3].to(tdev))
-            block.count += float(cfg.samples_per_step)
-            for part in parts:
-                v = part[4].to(info_dev)
-                info = v if info is None else info + v
+            with profiling.span("tile"):
+                block = stats.blocks[t]
+                tdev = block.count.device
+                is_first = (block.count == 0)[..., None]
+                parts = [self._shard(scene, t, s, key, sample_start,
+                                     block if s == 0 else None)
+                         for s in range(n_spp)]
+                # spp shard 0 folded into the block in place; add the
+                # others there in spp order
+                for total, total_sq, _, _, _ in parts[1:]:
+                    block.total += total.to(tdev)
+                    block.total_sq += total_sq.to(tdev)
+                first = parts[0][2]
+                block.first.copy_(torch.where(is_first, first, block.first))
+                block.last.copy_(parts[-1][3].to(tdev))
+                block.count += float(cfg.samples_per_step)
+                for part in parts:
+                    v = part[4].to(info_dev)
+                    info = v if info is None else info + v
         return stats, info
 
 

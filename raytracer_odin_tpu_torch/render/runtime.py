@@ -42,7 +42,7 @@ from raytracer_odin_tpu_torch.ops.integrator import (
     trace,
 )
 from raytracer_odin_tpu_torch.render import accum
-from raytracer_odin_tpu_torch.utils import prng
+from raytracer_odin_tpu_torch.utils import prng, profiling
 from raytracer_odin_tpu_torch.utils.math3d import normalize
 
 
@@ -205,6 +205,7 @@ def _raise_on_nans(scene, key, sample, vals, fov_x, width, height, opts,
     FloatingPointError naming the bounce and the stage; if no live lane
     holds one there, raise naming the layers and pixels of the output."""
     nan = torch.isnan(vals).any(dim=-1)  # [L, H, W]
+    profiling.count("host_syncs")
     if not bool(nan.any()):
         return
     sample_pass(scene, key, sample, fov_x, width, height,
@@ -259,11 +260,12 @@ def make_render_step(cfg: RenderConfig, fov_x: float, lane_schedule=None,
             if debug_nans:
                 _raise_on_nans(scene, key, sample_start + k, vals, fov_x, W,
                                H, opts, cfg.debug_features)
-            accum.update_layers(stats, vals)
-            vals = torch.cat([aux["rays_cast"].reshape(1),
-                              aux["overflow"].reshape(1),
-                              aux["alive_counts"]])
-            info = vals if info is None else info + vals
+            with profiling.span("accumulate"):
+                accum.update_layers(stats, vals)
+                vals = torch.cat([aux["rays_cast"].reshape(1),
+                                  aux["overflow"].reshape(1),
+                                  aux["alive_counts"]])
+                info = vals if info is None else info + vals
         return stats, info
 
     return step
@@ -280,6 +282,7 @@ def _nan_checked(step, cfg: RenderConfig, fov_x: float) -> Callable:
     @functools.wraps(step)
     def checked(scene, stats, key, sample_start: int):
         stats, info = step(scene, stats, key, sample_start)
+        profiling.count("host_syncs")
         if bool(torch.isnan(stats.total[0]).any()):
             # a sharded step's scene is one copy a device
             if isinstance(scene, dict):
@@ -378,10 +381,12 @@ def _calibration_counts(scene, cfg: RenderConfig, fov_x: float, device,
     """Live lanes entering each bounce in one uncompacted sample (sample 0
     of the seed) of rows [row_offset, row_offset + n_rows)."""
     _require_device(scene, device)
-    _, aux = sample_pass(scene, prng.key_from_seed(cfg.seed), 0, fov_x,
-                         cfg.width, cfg.height, _trace_options(cfg),
-                         row_offset=row_offset, n_rows=n_rows)
-    return aux["alive_counts"].tolist()
+    with profiling.span("calibrate"):
+        _, aux = sample_pass(scene, prng.key_from_seed(cfg.seed), 0, fov_x,
+                             cfg.width, cfg.height, _trace_options(cfg),
+                             row_offset=row_offset, n_rows=n_rows)
+        profiling.count("host_syncs")
+        return aux["alive_counts"].tolist()
 
 
 def auto_lane_schedule(scene, cfg: RenderConfig, fov_x: float,
@@ -440,6 +445,10 @@ class RenderResult:
     refill_plan: Optional[tuple] = None
     # The pool's waves in each step (empty: another step).
     pool_waves: tuple = ()
+    # What the call added to profiling.PROCESS: its spans and counters
+    # (calibration included; step_spans / step_counters: inside its steps).
+    phases: profiling.PhaseTimer = dataclasses.field(
+        default_factory=profiling.PhaseTimer)
 
 
 def render_scene(
@@ -486,9 +495,12 @@ def render_scene(
     is redone uncompacted; a step_fn that can overflow must offer
     `uncompacted()`, the step to redo it with.
 
-    The step counters stay on the device and are read once at the end."""
+    The step counters stay on the device and are read once at the end.
+    RenderResult.phases holds the spans and counters the call recorded
+    (utils/profiling.py): one "step" span a step."""
     from raytracer_odin_tpu_torch.ops import refill
 
+    tally = profiling.PROCESS.snapshot()
     dev = _require_device(scene, device)
     lane_schedule = None
     refill_plan = None
@@ -520,6 +532,7 @@ def render_scene(
     def sync():
         # every card: a sharded step's shards may run on several
         if dev.type == "cuda":
+            profiling.count("host_syncs")
             for i in range(torch.cuda.device_count()):
                 torch.cuda.synchronize(i)
 
@@ -537,14 +550,17 @@ def render_scene(
         while target is None or samples_done < target:
             if interrupt:
                 break
-            stats, info = step(scene, stats, key, samples_done)
-            info_total = info if info_total is None else info_total + info
+            with profiling.span(profiling.STEP):
+                stats, info = step(scene, stats, key, samples_done)
+                info_total = (info if info_total is None
+                              else info_total + info)
             samples_done += cfg.samples_per_step
             if on_step is not None:
                 on_step(stats, samples_done)
             if (converge_se > 0.0 and cfg.continuous
                     and (samples_done // cfg.samples_per_step)
                     % converge_check_every == 0):
+                profiling.count("host_syncs")
                 se = float(mean_standard_error(
                     accum.crop(stats, cfg.height, cfg.width)))
                 if verbose:
@@ -566,7 +582,10 @@ def render_scene(
     if verbose and trials > 1:
         print_perf_summary(timings)
 
-    totals = [] if info_total is None else info_total.tolist()
+    totals = []
+    if info_total is not None:
+        profiling.count("host_syncs")
+        totals = info_total.tolist()
     rays = totals[0] if totals else 0
     overflow = totals[1] if totals else 0
     if overflow > 0:
@@ -583,7 +602,8 @@ def render_scene(
             converge_se=converge_se,
             converge_check_every=converge_check_every, debug_nans=debug_nans,
         )
-        return dataclasses.replace(redo, overflow=int(overflow))
+        return dataclasses.replace(redo, overflow=int(overflow),
+                                   phases=profiling.PROCESS.since(tally))
     return RenderResult(
         stats=result_stats,
         samples_done=samples_done,
@@ -594,6 +614,7 @@ def render_scene(
         lane_schedule=tuple(lane_schedule) if lane_schedule else None,
         refill_plan=refill_plan,
         pool_waves=tuple(getattr(step, "waves", ())),
+        phases=profiling.PROCESS.since(tally),
     )
 
 
