@@ -3215,32 +3215,35 @@ def accuracy_path(rt, integ, trav, pi, dev, counters, reps, card,
 
 def live_lane_ids(rt, integ, scene, cfg, fov_x, schedule, sample):
     """The sorted stream ids of the lanes that continue after each bounce
-    of one compacted sample of `cfg` (integ._shade_vertex's continuation,
-    read with the ids prng.uniforms was given for the same lanes)."""
+    of one compacted sample of `cfg` (the alive mask each shading segment
+    returns through integ.shade_graph.run, its first lanes read with the
+    ids prng.uniforms was given for the same lanes: bounce 0's mask is
+    padded to whole ray blocks)."""
     import torch
 
     from raytracer_odin_tpu_torch.utils import prng
 
-    real_u, real_s = prng.uniforms, integ._shade_vertex
+    graphs = integ.shade_graph
+    real_u, real_run = prng.uniforms, graphs.run
     last, seen = {}, []
 
     def uniforms(key, samples, tags, sids, n):
         last["sids"] = sids
         return real_u(key, samples, tags, sids, n)
 
-    def shade(*args, **kw):
-        out = real_s(*args, **kw)
-        seen.append(torch.sort(last["sids"].reshape(-1)[
-            out[4].reshape(-1)]).values)
+    def run(*args, **kw):
+        out = real_run(*args, **kw)
+        sids = last["sids"].reshape(-1)
+        seen.append(torch.sort(sids[out[1][:sids.numel()]]).values)
         return out
 
-    prng.uniforms, integ._shade_vertex = uniforms, shade
+    prng.uniforms, graphs.run = uniforms, run
     try:
         rt.sample_pass(scene, prng.key_from_seed(cfg.seed), sample, fov_x,
                        cfg.width, cfg.height,
                        rt._trace_options(cfg, lane_schedule=schedule))
     finally:
-        prng.uniforms, integ._shade_vertex = real_u, real_s
+        prng.uniforms, graphs.run = real_u, real_run
     return seen
 
 

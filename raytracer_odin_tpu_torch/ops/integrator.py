@@ -39,6 +39,7 @@ import torch
 from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
 from raytracer_odin_tpu_torch.ops import (
     probes,
+    shade_graph,
     shading,
     shading_cols,
     texture,
@@ -248,29 +249,72 @@ def _shade_vertex(scene, o, d, t, tri_idx, alive, uniforms, has_lights,
     Returns (new_o, new_d, throughput, radiance, alive, ev, hit, missed);
     new_o/new_d are garbage on dead lanes (masked by `alive`). ev, hit and
     missed are what the shade computed anyway: the probes and the ray log
-    read them, the compacted trace drops them. Tallied as the "shade"
-    span."""
-    with profiling.span("shade"):
-        hit = (tri_idx >= 0) & alive
-        missed = (~(tri_idx >= 0)) & alive
+    read them, the compacted trace drops them. Callers tally it as the
+    "shade" span."""
+    hit = (tri_idx >= 0) & alive
+    missed = (~(tri_idx >= 0)) & alive
 
-        if scene.env_tex >= 0:
-            env = texture.sample_env(scene, d, scene.env_tex)
-            radiance = radiance + torch.where(
-                missed[..., None], throughput * env, 0.0
-            )
-
-        ev = eval_bounce(scene, o, d, t, tri_idx, uniforms, has_lights,
-                         light_chunk)
+    if scene.env_tex >= 0:
+        env = texture.sample_env(scene, d, scene.env_tex)
         radiance = radiance + torch.where(
-            hit[..., None], throughput * ev["material"]["emission"], 0.0
+            missed[..., None], throughput * env, 0.0
         )
-        cont = ev["cont"] & hit
-        ratio = ev["value"] / ev["pdf"][..., None]
-        throughput = torch.where(cont[..., None], throughput * ratio,
-                                 throughput)
+
+    ev = eval_bounce(scene, o, d, t, tri_idx, uniforms, has_lights,
+                     light_chunk)
+    radiance = radiance + torch.where(
+        hit[..., None], throughput * ev["material"]["emission"], 0.0
+    )
+    cont = ev["cont"] & hit
+    ratio = ev["value"] / ev["pdf"][..., None]
+    throughput = torch.where(cont[..., None], throughput * ratio,
+                             throughput)
     return (ev["material"]["pos"], ev["new_d"], throughput, radiance, cont,
             ev, hit, missed)
+
+
+def first_segment(scene, o, d, t, tri_idx, uniforms, light_chunk: int):
+    """Bounce 0's shading segment: the shade of the camera rays o, d
+    [..., 3] at their hits t, tri_idx [...] with draws uniforms [..., 6],
+    flattened into the lane state [Npad, 12] (o, d, throughput, radiance;
+    Npad is the lane count rounded up to RB) with its alive mask [Npad].
+    Padding lanes are dead."""
+    has_lights = scene.light_p.shape[0] > 0
+    batch_shape = tuple(o.shape[:-1])
+    dev = o.device
+    n0 = o.shape[:-1].numel()
+    n0p = -(-n0 // pi.RB) * pi.RB
+    alive = torch.ones(batch_shape, dtype=torch.bool, device=dev)
+    throughput = torch.ones(batch_shape + (3,), dtype=torch.float32,
+                            device=dev)
+    radiance = torch.zeros(batch_shape + (3,), dtype=torch.float32,
+                           device=dev)
+    o, d, throughput, radiance, alive = _shade_vertex(
+        scene, o, d, t, tri_idx, alive, uniforms, has_lights,
+        throughput, radiance, light_chunk,
+    )[:5]
+    state = torch.zeros((n0p, 12), dtype=torch.float32, device=dev)
+    state[:n0, 0:3] = o.reshape(n0, 3)
+    state[:n0, 3:6] = d.reshape(n0, 3)
+    state[:n0, 6:9] = throughput.reshape(n0, 3)
+    state[:n0, 9:12] = radiance.reshape(n0, 3)
+    alive = torch.cat([alive.reshape(n0),
+                       torch.zeros(n0p - n0, dtype=torch.bool, device=dev)])
+    return state, alive
+
+
+def later_segment(scene, state, t, tri_idx, alive, uniforms,
+                  light_chunk: int):
+    """The shading segment of a later compacted bounce: the shade of the
+    packed lane state [N, 12] at its hits t, tri_idx [N] with draws
+    uniforms [N, 6], packed again. Returns (state [N, 12], alive [N]);
+    refill shades its lanes with it too."""
+    o2, d2, thr, rad, alive = _shade_vertex(
+        scene, state[:, 0:3], state[:, 3:6], t, tri_idx, alive, uniforms,
+        scene.light_p.shape[0] > 0, state[:, 6:9], state[:, 9:12],
+        light_chunk,
+    )[:5]
+    return torch.cat([o2, d2, thr, rad], dim=1), alive
 
 
 def _shade_vertex_cols(scene, o, d, t, tri_idx, alive, uniforms, has_lights,
@@ -370,7 +414,8 @@ def trace(scene, o, d, key, sample, opts: TraceOptions, stream_ids=None,
         stream_ids = (int(stream_base or 0) + torch.arange(
             n_lanes, dtype=torch.int32, device=dev)).reshape(batch_shape)
     if opts.lane_schedule is not None and compaction_applies(opts, dev):
-        return _trace_compacted(scene, o, d, key, sample, opts, stream_ids)
+        return _trace_compacted(scene, o, d, key, sample, opts, stream_ids,
+                                tile=stream_base or 0)
 
     has_lights = scene.light_p.shape[0] > 0
     throughput = torch.ones(batch_shape + (3,), dtype=torch.float32,
@@ -403,10 +448,11 @@ def trace(scene, o, d, key, sample, opts: TraceOptions, stream_ids=None,
             check_live_nans(sample, b, "cast", stream_ids,
                             [("t", t, alive)])
         uniforms = prng.uniforms(key, sample, b, stream_ids, 6)
-        new_o, new_d, throughput, radiance, cont, ev, hit, missed = (
-            _shade_vertex(scene, o, d, t, tri_idx, alive, uniforms,
-                          has_lights, throughput, radiance,
-                          opts.light_chunk))
+        with profiling.span("shade"):
+            new_o, new_d, throughput, radiance, cont, ev, hit, missed = (
+                _shade_vertex(scene, o, d, t, tri_idx, alive, uniforms,
+                              has_lights, throughput, radiance,
+                              opts.light_chunk))
         if opts.check_nans:
             check_live_nans(sample, b, "shade", stream_ids, [
                 ("radiance", radiance, alive),
@@ -468,44 +514,27 @@ def compaction_applies(opts: TraceOptions, device) -> bool:
 
 
 def first_bounce(scene, o, d, key, sample, stream_ids=None,
-                 light_chunk: int = 256):
+                 light_chunk: int = 256, tile=None, widths=None):
     """Bounce 0 of the compacted wavefront: the tiled full-width cast of the
-    camera rays o, d [..., 3] and their shading, flattened into the lane
-    state [Npad, 12] (o, d, throughput, radiance; Npad is the lane count
-    rounded up to RB) with its alive mask [Npad]. Padding lanes are dead;
-    a lane draws with its stream id (stream_ids [...], by default its flat
-    position)."""
-    has_lights = scene.light_p.shape[0] > 0
+    camera rays o, d [..., 3] and their shading segment (first_segment),
+    run by shade_graph.run: the lane state [Npad, 12] (o, d, throughput,
+    radiance; Npad is the lane count rounded up to RB) with its alive mask
+    [Npad]. Padding lanes are dead; a lane draws with its stream id
+    (stream_ids [...], by default its flat position). tile and widths
+    place the sample in the graph cache (shade_graph.run); on the card the
+    two tensors are a graph's outputs, rewritten by the next call with the
+    same key."""
     batch_shape = tuple(o.shape[:-1])
-    dev = o.device
-    n0 = 1
-    for s in batch_shape:
-        n0 *= s
-    n0p = -(-n0 // pi.RB) * pi.RB
     t, tri_idx = traverse.cast_rays(
         scene, o, d, intersector="pallas", sort=False
     )
     if stream_ids is None:
-        stream_ids = torch.arange(n0, dtype=torch.int32,
-                                  device=dev).reshape(batch_shape)
+        stream_ids = torch.arange(o.shape[:-1].numel(), dtype=torch.int32,
+                                  device=o.device).reshape(batch_shape)
     uniforms = prng.uniforms(key, sample, 0, stream_ids, 6)
-    alive = torch.ones(batch_shape, dtype=torch.bool, device=dev)
-    throughput = torch.ones(batch_shape + (3,), dtype=torch.float32,
-                            device=dev)
-    radiance = torch.zeros(batch_shape + (3,), dtype=torch.float32,
-                           device=dev)
-    o, d, throughput, radiance, alive = _shade_vertex(
-        scene, o, d, t, tri_idx, alive, uniforms, has_lights,
-        throughput, radiance, light_chunk,
-    )[:5]
-    state = torch.zeros((n0p, 12), dtype=torch.float32, device=dev)
-    state[:n0, 0:3] = o.reshape(n0, 3)
-    state[:n0, 3:6] = d.reshape(n0, 3)
-    state[:n0, 6:9] = throughput.reshape(n0, 3)
-    state[:n0, 9:12] = radiance.reshape(n0, 3)
-    alive = torch.cat([alive.reshape(n0),
-                       torch.zeros(n0p - n0, dtype=torch.bool, device=dev)])
-    return state, alive
+    return shade_graph.run(first_segment, scene,
+                           (o, d, t, tri_idx, uniforms), light_chunk,
+                           tile=tile, widths=widths)
 
 
 def sort_lanes(state, alive, aabb8, n_super: int, budget: int):
@@ -707,7 +736,7 @@ def _trace_compacted_cols(scene, o, d, key, sample, opts: TraceOptions,
 
 
 def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions,
-                     stream_ids):
+                     stream_ids, tile=None):
     """Dead-lane-compacted wavefront (TraceOptions.lane_schedule).
 
       bounce 0   tiled full-width cast + shade (camera rays, image order)
@@ -727,11 +756,16 @@ def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions,
     sort: K1 and the sweep run on every lane in the previous bounce's
     order, dead lanes as far rays, with no slice and no retirement, and
     rays_cast grows by that bounce's live lanes. COLS routes to
-    `_trace_compacted_cols`."""
+    `_trace_compacted_cols`.
+
+    Each bounce's shade and the packing of its outputs is one segment
+    (first_segment, later_segment) of static shapes, run by
+    shade_graph.run: on the card from a CUDA graph, keyed by `tile` (the
+    sample's place in the frame, trace's stream_base) and the lane
+    budgets."""
     if COLS:
         return _trace_compacted_cols(scene, o, d, key, sample, opts,
                                      stream_ids)
-    has_lights = scene.light_p.shape[0] > 0
     batch_shape = tuple(o.shape[:-1])
     dev = o.device
     schedule = opts.lane_schedule
@@ -740,9 +774,14 @@ def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions,
     for s in batch_shape:
         n0 *= s
 
+    def shade(state, t, tri_idx, alive, uniforms):
+        return shade_graph.run(later_segment, scene,
+                               (state, t, tri_idx, alive, uniforms),
+                               opts.light_chunk, tile=tile, widths=schedule)
+
     # ---- bounce 0: full width, image order ----
     state, alive = first_bounce(scene, o, d, key, sample, stream_ids,
-                                opts.light_chunk)
+                                opts.light_chunk, tile=tile, widths=schedule)
     n0p = state.shape[0]
     rays = torch.full((), n0, dtype=torch.int64, device=dev)
     alive_counts = [rays]
@@ -768,12 +807,7 @@ def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions,
             t, tri_idx = traverse.cast_presorted_rows(scene, rays_pre,
                                                       words=words)
             uniforms = prng.uniforms(key, sample, b, stream, 6)
-            o2, d2, thr, rad, alive = _shade_vertex(
-                scene, state[:, 0:3], state[:, 3:6], t, tri_idx, alive,
-                uniforms, has_lights, state[:, 6:9], state[:, 9:12],
-                opts.light_chunk,
-            )[:5]
-            state = torch.cat([o2, d2, thr, rad], dim=1)
+            state, alive = shade(state, t, tri_idx, alive, uniforms)
             continue
         budget = schedule[b - 1] if b - 1 < len(schedule) else schedule[-1]
         state, perm, rays_sorted, s_words = sort_lanes(
@@ -799,11 +833,7 @@ def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions,
             scene, rays_sorted, words=s_words
         )
         uniforms = prng.uniforms(key, sample, b, stream, 6)
-        o2, d2, thr, rad, alive = _shade_vertex(
-            scene, state[:, 0:3], state[:, 3:6], t, tri_idx, alive, uniforms,
-            has_lights, state[:, 6:9], state[:, 9:12], opts.light_chunk,
-        )[:5]
-        state = torch.cat([o2, d2, thr, rad], dim=1)
+        state, alive = shade(state, t, tri_idx, alive, uniforms)
 
     # ---- merge: each lane id appears exactly once ----
     with profiling.span("merge"):

@@ -6,7 +6,7 @@ One wavefront of about constant width works through a whole step's
 next items, masks every lane with K1, sorts the lanes by (dead|octant,
 mask words) so the dead ones form the tail, retires that tail, casts the
 kept prefix through the presorted sweep (K2) and shades it with the
-batched trace's physics (integrator._shade_vertex). The fresh and kept
+batched trace's physics (integrator.later_segment). The fresh and kept
 widths of every iteration are planned on the host from the 1-spp alive
 counts that calibrate compaction (plan_refill); live lanes cut by a plan
 that undershoots are counted as overflow, and the caller then re-renders
@@ -30,11 +30,11 @@ import torch
 from raytracer_odin_tpu_torch.ops import traverse
 from raytracer_odin_tpu_torch.ops.integrator import (
     TraceOptions,
-    _shade_vertex,
+    later_segment,
     sort_lanes,
 )
 from raytracer_odin_tpu_torch.render.runtime import generate_rays
-from raytracer_odin_tpu_torch.utils import prng
+from raytracer_odin_tpu_torch.utils import prng, profiling
 
 
 class RefillPlan(NamedTuple):
@@ -150,7 +150,6 @@ def trace_refill(scene, key, sample_start: int, opts: TraceOptions,
     n0 = width * height
     total = n_samples * n0
     depth = opts.depth
-    has_lights = scene.light_p.shape[0] > 0
     _g, n_super, aabb8 = traverse.exact_cull_layout(scene)
 
     # The wavefront: state [N, 12] (o, d, throughput, radiance), item ids
@@ -213,12 +212,9 @@ def trace_refill(scene, key, sample_start: int, opts: TraceOptions,
         uniforms = prng.uniforms(
             key, (sample_start + gid // n0).to(torch.int32),
             bnc.to(torch.int32), (gid % n0).to(torch.int32), 6)
-        o2, d2, thr, rad, cont = _shade_vertex(
-            scene, state[:, 0:3], state[:, 3:6], t, tri_idx, alive,
-            uniforms, has_lights, state[:, 6:9], state[:, 9:12],
-            opts.light_chunk,
-        )[:5]
-        state = torch.cat([o2, d2, thr, rad], dim=1)
+        with profiling.span("shade"):
+            state, cont = later_segment(scene, state, t, tri_idx, alive,
+                                        uniforms, opts.light_chunk)
         alive = cont & (bnc < depth - 1)
         bnc = bnc + 1
 

@@ -235,7 +235,10 @@ class PhaseTimer:
 
 
 # The program's tally: every span and counter of the port writes here,
-# through `with span("shade"): ...` and `count("host_syncs")`.
+# through `with span("shade"): ...` and `count("host_syncs")`. Counters:
+# host_syncs (a site where the host waits for the card),
+# shade_graph_replays and shade_graph_captures (ops/shade_graph.py: a
+# shading segment replayed from its CUDA graph, a graph captured).
 PROCESS = PhaseTimer()
 span = PROCESS.span
 count = PROCESS.count

@@ -1,0 +1,210 @@
+"""The compacted sample's shading segments and their CUDA graphs
+(ops/shade_graph.py): on the CPU the segments run eagerly and no graph
+counter moves, the engagement rule reads the device and the light path,
+and the cache key separates what the segment's Python reads; with the
+`gpu` marker, on the card, graphed and eager renders are bit-equal on one
+card, on a 4 x 1 mesh of one card, on the env-map and on the textured
+scene, and a scene on the culled light path (K5) stays eager.
+
+Imports no jax, so the card tests run on a machine without it:
+
+    python -m pytest --noconftest tests/test_torch_shade_graph.py -m gpu
+"""
+
+from types import SimpleNamespace
+
+import pytest
+import torch
+
+from raytracer_odin_tpu_torch.config import RenderConfig
+from raytracer_odin_tpu_torch.io import gltf
+from raytracer_odin_tpu_torch.models import assets, build
+from raytracer_odin_tpu_torch.ops import integrator, shade_graph
+from raytracer_odin_tpu_torch.parallel import mesh as pmesh
+from raytracer_odin_tpu_torch.render import accum, runtime
+from raytracer_odin_tpu_torch.utils import profiling
+
+COUNTERS = (shade_graph.REPLAYS, shade_graph.CAPTURES)
+
+
+@pytest.fixture(autouse=True)
+def fresh_graphs():
+    shade_graph.GRAPHS.clear()
+    yield
+    shade_graph.GRAPHS.clear()
+
+
+def _scene(path, device="cpu"):
+    host = gltf.read_gltf(path)
+    return host, build.finish_scene(host, device=device)
+
+
+def _counts():
+    return {k: profiling.PROCESS.counters.get(k, 0) for k in COUNTERS}
+
+
+def test_compacted_sample_runs_eagerly_on_the_cpu(tmp_path):
+    """A compacted CPU render: one shade span a bounce, no replay, no
+    capture, no graph in the cache."""
+    host, scene = _scene(assets.generate("cornell", tmp_path)["gltf"])
+    depth, steps = 4, 2
+    cfg = RenderConfig(width=32, height=16, ray_depth=depth, samples=steps,
+                       samples_per_step=1, intersector="pallas",
+                       compact="auto")
+    before = _counts()
+    res = runtime.render_scene(scene, cfg, host.cam.fov_x, device="cpu")
+    assert res.lane_schedule is not None and res.overflow == 0
+    assert res.phases.step_spans["shade"].calls == steps * depth
+    assert _counts() == before
+    assert not set(COUNTERS) & set(res.phases.counters)
+    assert len(shade_graph.GRAPHS) == 0
+
+
+def _fake_scene(n_lights=4, env_tex=-1):
+    return SimpleNamespace(light_p=torch.zeros((n_lights, 3)),
+                           env_tex=env_tex)
+
+
+@pytest.mark.parametrize("device,lights,engaged", [
+    ("cpu", 4, False),
+    ("cpu", 0, False),
+    ("cuda", 600, False),
+])
+def test_engages_reads_device_and_light_path(monkeypatch, device, lights,
+                                             engaged):
+    """The CPU never engages a graph; on a card the culled light path
+    (from light_cull.threshold() lights on) does not either."""
+    monkeypatch.delenv("RT_TPU_LIGHT_CULL_MIN", raising=False)
+    assert shade_graph.engages(_fake_scene(lights),
+                               torch.device(device)) is engaged
+
+
+def test_engages_follows_the_light_threshold(monkeypatch):
+    """RT_TPU_LIGHT_CULL_MIN moves a four-light scene onto the culled path,
+    which stays eager."""
+    monkeypatch.setenv("RT_TPU_LIGHT_CULL_MIN", "4")
+    assert not shade_graph.engages(_fake_scene(4), torch.device("cuda"))
+
+
+def _key_inputs(width=1024):
+    return (torch.zeros((width, 12)), torch.zeros(width),
+            torch.zeros(width, dtype=torch.int32),
+            torch.zeros(width, dtype=torch.bool), torch.zeros((width, 6)))
+
+
+def _key(scene, segment=integrator.later_segment, width=1024, chunk=256,
+         tile=0):
+    return shade_graph.graph_key(segment, scene, _key_inputs(width), chunk,
+                                 tile)
+
+
+@pytest.mark.parametrize("change", [
+    dict(segment=integrator.first_segment),
+    dict(width=1536),
+    dict(chunk=128),
+    dict(tile=270 * 1920),
+    dict(lights=0),
+    dict(env_tex=0),
+    dict(threshold="4"),
+])
+def test_graph_key_separates(monkeypatch, change):
+    """Each fact the segment's Python reads gives another key for the same
+    scene object: bounce 0 against a later bounce, the width, the light
+    chunk, the tile, lights or none, the env map, and the light path (the
+    threshold)."""
+    monkeypatch.delenv("RT_TPU_LIGHT_CULL_MIN", raising=False)
+    scene = _fake_scene()
+    base = _key(scene)
+    change = dict(change)
+    if "threshold" in change:
+        monkeypatch.setenv("RT_TPU_LIGHT_CULL_MIN", change.pop("threshold"))
+    if "lights" in change:
+        scene.light_p = torch.zeros((change.pop("lights"), 3))
+    if "env_tex" in change:
+        scene.env_tex = change.pop("env_tex")
+    assert _key(scene, **change) != base
+
+
+def test_graph_key_same_inputs_and_scene_identity():
+    """Equal facts give the equal key; another scene object another tile
+    with the same segment key."""
+    scene = _fake_scene()
+    assert _key(scene) == _key(scene)
+    assert _key(scene)[0] != _key(_fake_scene())[0]
+    assert _key(scene)[1] == _key(_fake_scene())[1]
+
+
+# ---- on the card ----
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (this machine has none)")
+    return torch.device("cuda", 0)
+
+
+def _render(scene, host, cfg, dev, tiles: int):
+    """render_scene on one card, or over a tiles x 1 mesh of it; returns
+    (result, gathered stats)."""
+    fov = host.cam.fov_x * cfg.width / cfg.height
+    if tiles == 1:
+        res = runtime.render_scene(scene, cfg, fov, device=dev)
+        return res, res.stats
+    mesh = pmesh.make_mesh(n_tile=tiles, n_spp=1, devices=[dev] * tiles)
+    rs = pmesh.replicate_scene(scene, mesh)
+    step = pmesh.make_sharded_render_step(cfg, fov, mesh, rs)
+    h_pad = pmesh.padded_height(cfg.height, tiles)
+    res = runtime.render_scene(
+        rs, cfg, fov, device=dev, step_fn=step,
+        make_stats=lambda: pmesh.shard_stats(
+            accum.init_stats(1, h_pad, cfg.width, device=dev), mesh))
+    return res, res.stats.gather()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,tiles", [("demo", 1), ("demo", 4),
+                                        ("envmap", 1), ("textured", 1)])
+def test_graphed_render_bit_equal(cuda, tmp_path, monkeypatch, name, tiles):
+    """Two steps of 2 spp (each graph replays twice a step) graphed, then
+    eagerly: bit-equal Stats, rays cast and live lanes a bounce; every
+    shade span of the steps is a replay; on the 4 x 1 mesh each tile has
+    its own graphs."""
+    monkeypatch.delenv("RT_TPU_LIGHT_CULL_MIN", raising=False)
+    host, scene = _scene(assets.generate(name, tmp_path)["gltf"], cuda)
+    cfg = RenderConfig(width=320, height=184, ray_depth=8, samples=4,
+                       samples_per_step=2, intersector="pallas",
+                       compact="auto")
+    graphed, g_stats = _render(scene, host, cfg, cuda, tiles)
+    ph = graphed.phases
+    assert graphed.overflow == 0 and graphed.lane_schedule is not None
+    shades = ph.step_spans["shade"].calls
+    assert shades == 2 * 2 * tiles * cfg.ray_depth
+    assert ph.step_counters[shade_graph.REPLAYS] == shades
+    captures = ph.counters[shade_graph.CAPTURES]
+    assert captures == len(shade_graph.GRAPHS)
+    assert len(shade_graph.GRAPHS._tiles) == tiles
+    assert tiles * 2 <= captures <= tiles * cfg.ray_depth
+
+    monkeypatch.setattr(shade_graph, "engages", lambda scene, device: False)
+    eager, e_stats = _render(scene, host, cfg, cuda, tiles)
+    assert shade_graph.REPLAYS not in eager.phases.counters
+    assert eager.lane_schedule == graphed.lane_schedule
+    assert eager.rays_cast == graphed.rays_cast
+    assert eager.alive_counts == graphed.alive_counts
+    for f in ("first", "last", "total", "total_sq", "count"):
+        assert torch.equal(getattr(g_stats, f), getattr(e_stats, f)), f
+
+
+@pytest.mark.gpu
+def test_culled_light_path_stays_eager(cuda, tmp_path, monkeypatch):
+    """The demo pushed over the light threshold (RT_TPU_LIGHT_CULL_MIN=1):
+    its light pdf is K5's, and no segment is graphed."""
+    monkeypatch.setenv("RT_TPU_LIGHT_CULL_MIN", "1")
+    host, scene = _scene(assets.generate("demo", tmp_path)["gltf"], cuda)
+    cfg = RenderConfig(width=192, height=108, ray_depth=4, samples=2,
+                       samples_per_step=1, intersector="pallas",
+                       compact="auto")
+    res, _ = _render(scene, host, cfg, cuda, 1)
+    assert res.lane_schedule is not None
+    assert not set(COUNTERS) & set(res.phases.counters)
+    assert len(shade_graph.GRAPHS) == 0
