@@ -36,6 +36,7 @@ import torch
 from raytracer_odin_tpu_torch.ops import culling
 from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
 from raytracer_odin_tpu_torch.ops.geometry import BIG, RAY_EPS
+from raytracer_odin_tpu_torch.utils import profiling
 from raytracer_odin_tpu_torch.utils.env import env_int
 
 LEAF_L = 32  # lights per cluster
@@ -236,6 +237,7 @@ def light_sums_rows(light_rows, counts, lists, rays):
     if rc != 0:
         raise RuntimeError(f"light kernel launch failed: cudaError {rc}")
     light_sums_rows.launches += 1
+    profiling.count("light_launches")
     return out
 
 
@@ -285,7 +287,9 @@ def light_lists(scene, o, d, cap: int = LIST_CAP):
 def light_pdf_sum_culled(scene, o, d, cap: int = LIST_CAP):
     """Culled equivalent of shading.light_pdf_sum (same semantics: RAY_EPS
     offset, t >= 0 hits, fac * t^2/|ng.d|, NaN contributions 0, divided by
-    the light count). o, d [..., 3] -> [...]."""
-    counts, lists, rays, n = light_lists(scene, o, d, cap)
-    total = light_sums_rows(scene.light_rows, counts, lists, rays)
-    return total[:n].reshape(o.shape[:-1]) / scene.light_p.shape[0]
+    the light count). o, d [..., 3] -> [...]. Tallied as the span
+    "light"."""
+    with profiling.span("light"):
+        counts, lists, rays, n = light_lists(scene, o, d, cap)
+        total = light_sums_rows(scene.light_rows, counts, lists, rays)
+        return total[:n].reshape(o.shape[:-1]) / scene.light_p.shape[0]

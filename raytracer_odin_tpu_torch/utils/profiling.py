@@ -238,7 +238,9 @@ class PhaseTimer:
 # through `with span("shade"): ...` and `count("host_syncs")`. Counters:
 # host_syncs (a site where the host waits for the card),
 # shade_graph_replays and shade_graph_captures (ops/shade_graph.py: a
-# shading segment replayed from its CUDA graph, a graph captured).
+# shading segment replayed from its CUDA graph, a graph captured),
+# light_launches (ops/light_cull.py: a launch of K5, the culled light pdf's
+# kernel, whose calls the span "light" wraps with their lists).
 PROCESS = PhaseTimer()
 span = PROCESS.span
 count = PROCESS.count
