@@ -211,10 +211,10 @@ def _point_material(scene, o, d, t, tri_idx):
     }
 
 
-def eval_bounce(scene, o, d, t, tri_idx, uniforms, has_lights: bool,
-                light_chunk: int = 256):
-    """Per-vertex shading: material, mixture sample, pdf, BRDF value and the
-    continuation rule. Fields are garbage on misses (callers mask)."""
+def eval_head(scene, o, d, t, tri_idx, uniforms, has_lights: bool):
+    """eval_bounce up to the light pdf: material, the inside-flipped
+    normal, the mixture sample new_d, its cosine and VNDF pdfs (p_cos,
+    p_vndf) and the BRDF value; eval_tail completes it."""
     m = _point_material(scene, o, d, t, tri_idx)
     flip = m["inside"][..., None]
     normal = torch.where(flip, -m["normal"], m["normal"])
@@ -222,23 +222,72 @@ def eval_bounce(scene, o, d, t, tri_idx, uniforms, has_lights: bool,
     new_d = shading.sample_direction(
         scene, m["pos"], normal, m["roughness"], d, uniforms, has_lights
     )
-    pdf = shading.mixture_pdf(
-        scene, m["pos"], normal, m["roughness"], d, new_d, has_lights,
-        light_chunk=light_chunk,
-    )
+    p_cos, p_vndf = shading.bsdf_pdfs(normal, m["roughness"], d, new_d)
     value = shading.shade(
         m["color"], normal, m["metallic"], m["roughness"], d, new_d
     )
-    # Continuation rule (raytracer.odin:495): NaN compares false.
-    cont = norm_l1(value) / pdf > 1e-5
     return {
         "material": m,
         "normal": normal,
         "new_d": new_d,
-        "pdf": pdf,
+        "p_cos": p_cos,
+        "p_vndf": p_vndf,
         "value": value,
-        "cont": cont,
     }
+
+
+def eval_tail(ev, p_light):
+    """eval_head's fields with the mixture pdf of its terms and the light
+    pdf p_light (None without lights), and the continuation rule."""
+    pdf = shading.mix_pdfs(ev["p_cos"], p_light, ev["p_vndf"])
+    # Continuation rule (raytracer.odin:495): NaN compares false.
+    return dict(ev, pdf=pdf, cont=norm_l1(ev["value"]) / pdf > 1e-5)
+
+
+def eval_bounce(scene, o, d, t, tri_idx, uniforms, has_lights: bool,
+                light_chunk: int = 256):
+    """Per-vertex shading: material, mixture sample, pdf, BRDF value and the
+    continuation rule. Fields are garbage on misses (callers mask)."""
+    ev = eval_head(scene, o, d, t, tri_idx, uniforms, has_lights)
+    return eval_tail(ev, _light_pdf(scene, ev["material"]["pos"],
+                                    ev["new_d"], has_lights, light_chunk))
+
+
+def _light_pdf(scene, pos, new_d, has_lights, light_chunk):
+    return (shading.light_pdf(scene, pos, new_d, light_chunk)
+            if has_lights else None)
+
+
+def _shade_head(scene, o, d, t, tri_idx, alive, uniforms, has_lights,
+                throughput, radiance):
+    """_shade_vertex up to the light pdf: the env term on a miss, eval_head
+    and the emission on a hit. Returns (ev, hit, missed, radiance)."""
+    hit = (tri_idx >= 0) & alive
+    missed = (~(tri_idx >= 0)) & alive
+
+    if scene.env_tex >= 0:
+        env = texture.sample_env(scene, d, scene.env_tex)
+        radiance = radiance + torch.where(
+            missed[..., None], throughput * env, 0.0
+        )
+
+    ev = eval_head(scene, o, d, t, tri_idx, uniforms, has_lights)
+    radiance = radiance + torch.where(
+        hit[..., None], throughput * ev["material"]["emission"], 0.0
+    )
+    return ev, hit, missed, radiance
+
+
+def _shade_tail(ev, hit, throughput, p_light):
+    """_shade_vertex from the light pdf p_light on: eval_tail, the
+    continuation of hit lanes and the throughput update. Returns (ev,
+    cont, throughput)."""
+    ev = eval_tail(ev, p_light)
+    cont = ev["cont"] & hit
+    ratio = ev["value"] / ev["pdf"][..., None]
+    throughput = torch.where(cont[..., None], throughput * ratio,
+                             throughput)
+    return ev, cont, throughput
 
 
 def _shade_vertex(scene, o, d, t, tri_idx, alive, uniforms, has_lights,
@@ -251,51 +300,71 @@ def _shade_vertex(scene, o, d, t, tri_idx, alive, uniforms, has_lights,
     missed are what the shade computed anyway: the probes and the ray log
     read them, the compacted trace drops them. Callers tally it as the
     "shade" span."""
-    hit = (tri_idx >= 0) & alive
-    missed = (~(tri_idx >= 0)) & alive
-
-    if scene.env_tex >= 0:
-        env = texture.sample_env(scene, d, scene.env_tex)
-        radiance = radiance + torch.where(
-            missed[..., None], throughput * env, 0.0
-        )
-
-    ev = eval_bounce(scene, o, d, t, tri_idx, uniforms, has_lights,
-                     light_chunk)
-    radiance = radiance + torch.where(
-        hit[..., None], throughput * ev["material"]["emission"], 0.0
-    )
-    cont = ev["cont"] & hit
-    ratio = ev["value"] / ev["pdf"][..., None]
-    throughput = torch.where(cont[..., None], throughput * ratio,
-                             throughput)
+    ev, hit, missed, radiance = _shade_head(
+        scene, o, d, t, tri_idx, alive, uniforms, has_lights, throughput,
+        radiance)
+    ev, cont, throughput = _shade_tail(
+        ev, hit, throughput, _light_pdf(scene, ev["material"]["pos"],
+                                        ev["new_d"], has_lights,
+                                        light_chunk))
     return (ev["material"]["pos"], ev["new_d"], throughput, radiance, cont,
             ev, hit, missed)
 
 
-def first_segment(scene, o, d, t, tri_idx, uniforms, light_chunk: int):
-    """Bounce 0's shading segment: the shade of the camera rays o, d
-    [..., 3] at their hits t, tri_idx [...] with draws uniforms [..., 6],
-    flattened into the lane state [Npad, 12] (o, d, throughput, radiance;
-    Npad is the lane count rounded up to RB) with its alive mask [Npad].
-    Padding lanes are dead."""
-    has_lights = scene.light_p.shape[0] > 0
+# A segment is its head, the light pdf and its tail (the segment's
+# `halves`, each a segment of its own to shade_graph): the head returns
+# (pos, new_d, p_cos, p_vndf, value, hit, throughput, radiance), the tail
+# takes them and then the light pdf p_light of pos along new_d.
+def _segment_head(scene, o, d, t, tri_idx, alive, uniforms, throughput,
+                  radiance):
+    ev, hit, _missed, radiance = _shade_head(
+        scene, o, d, t, tri_idx, alive, uniforms,
+        scene.light_p.shape[0] > 0, throughput, radiance)
+    return (ev["material"]["pos"], ev["new_d"], ev["p_cos"], ev["p_vndf"],
+            ev["value"], hit, throughput, radiance)
+
+
+def _segment_tail(p_cos, p_vndf, value, hit, throughput, p_light):
+    ev = {"p_cos": p_cos, "p_vndf": p_vndf, "value": value}
+    _ev, cont, throughput = _shade_tail(ev, hit, throughput, p_light)
+    return cont, throughput
+
+
+def _head_light_pdf(scene, head, light_chunk):
+    """The light pdf a segment's tail takes: of HEAD's pos along new_d."""
+    return _light_pdf(scene, head[0], head[1], scene.light_p.shape[0] > 0,
+                      light_chunk)
+
+
+def first_head(scene, o, d, t, tri_idx, uniforms, light_chunk: int):
+    """Bounce 0's segment up to the light pdf: the shade of the camera rays
+    o, d [..., 3] at their hits t, tri_idx [...] with draws uniforms
+    [..., 6], as HEAD."""
     batch_shape = tuple(o.shape[:-1])
     dev = o.device
-    n0 = o.shape[:-1].numel()
-    n0p = -(-n0 // pi.RB) * pi.RB
     alive = torch.ones(batch_shape, dtype=torch.bool, device=dev)
     throughput = torch.ones(batch_shape + (3,), dtype=torch.float32,
                             device=dev)
     radiance = torch.zeros(batch_shape + (3,), dtype=torch.float32,
                            device=dev)
-    o, d, throughput, radiance, alive = _shade_vertex(
-        scene, o, d, t, tri_idx, alive, uniforms, has_lights,
-        throughput, radiance, light_chunk,
-    )[:5]
+    return _segment_head(scene, o, d, t, tri_idx, alive, uniforms,
+                         throughput, radiance)
+
+
+def first_tail(scene, pos, new_d, p_cos, p_vndf, value, hit, throughput,
+               radiance, p_light, light_chunk: int):
+    """Bounce 0's segment from the light pdf on, flattened into the lane
+    state [Npad, 12] (o, d, throughput, radiance; Npad is the lane count
+    rounded up to RB) with its alive mask [Npad]. Padding lanes are
+    dead."""
+    dev = pos.device
+    n0 = pos.shape[:-1].numel()
+    n0p = -(-n0 // pi.RB) * pi.RB
+    alive, throughput = _segment_tail(p_cos, p_vndf, value, hit, throughput,
+                                      p_light)
     state = torch.zeros((n0p, 12), dtype=torch.float32, device=dev)
-    state[:n0, 0:3] = o.reshape(n0, 3)
-    state[:n0, 3:6] = d.reshape(n0, 3)
+    state[:n0, 0:3] = pos.reshape(n0, 3)
+    state[:n0, 3:6] = new_d.reshape(n0, 3)
     state[:n0, 6:9] = throughput.reshape(n0, 3)
     state[:n0, 9:12] = radiance.reshape(n0, 3)
     alive = torch.cat([alive.reshape(n0),
@@ -303,18 +372,51 @@ def first_segment(scene, o, d, t, tri_idx, uniforms, light_chunk: int):
     return state, alive
 
 
+def first_segment(scene, o, d, t, tri_idx, uniforms, light_chunk: int):
+    """Bounce 0's shading segment, first_head then first_tail: the shade of
+    the camera rays o, d [..., 3] at their hits t, tri_idx [...] with
+    draws uniforms [..., 6], flattened into the lane state [Npad, 12]
+    with its alive mask [Npad]."""
+    head = first_head(scene, o, d, t, tri_idx, uniforms, light_chunk)
+    return first_tail(scene, *head, _head_light_pdf(scene, head,
+                                                    light_chunk),
+                      light_chunk)
+
+
+first_segment.halves = (first_head, first_tail)
+
+
+def later_head(scene, state, t, tri_idx, alive, uniforms, light_chunk: int):
+    """A later compacted bounce's segment up to the light pdf: the shade of
+    the packed lane state [N, 12] at its hits t, tri_idx [N] with draws
+    uniforms [N, 6], as HEAD."""
+    return _segment_head(scene, state[:, 0:3], state[:, 3:6], t, tri_idx,
+                         alive, uniforms, state[:, 6:9], state[:, 9:12])
+
+
+def later_tail(scene, pos, new_d, p_cos, p_vndf, value, hit, throughput,
+               radiance, p_light, light_chunk: int):
+    """A later bounce's segment from the light pdf on, packed again:
+    (state [N, 12], alive [N])."""
+    alive, throughput = _segment_tail(p_cos, p_vndf, value, hit, throughput,
+                                      p_light)
+    return torch.cat([pos, new_d, throughput, radiance], dim=1), alive
+
+
 def later_segment(scene, state, t, tri_idx, alive, uniforms,
                   light_chunk: int):
-    """The shading segment of a later compacted bounce: the shade of the
-    packed lane state [N, 12] at its hits t, tri_idx [N] with draws
-    uniforms [N, 6], packed again. Returns (state [N, 12], alive [N]);
-    refill shades its lanes with it too."""
-    o2, d2, thr, rad, alive = _shade_vertex(
-        scene, state[:, 0:3], state[:, 3:6], t, tri_idx, alive, uniforms,
-        scene.light_p.shape[0] > 0, state[:, 6:9], state[:, 9:12],
-        light_chunk,
-    )[:5]
-    return torch.cat([o2, d2, thr, rad], dim=1), alive
+    """The shading segment of a later compacted bounce, later_head then
+    later_tail: the shade of the packed lane state [N, 12] at its hits t,
+    tri_idx [N] with draws uniforms [N, 6], packed again. Returns
+    (state [N, 12], alive [N]); refill shades its lanes with it too."""
+    head = later_head(scene, state, t, tri_idx, alive, uniforms,
+                      light_chunk)
+    return later_tail(scene, *head, _head_light_pdf(scene, head,
+                                                    light_chunk),
+                      light_chunk)
+
+
+later_segment.halves = (later_head, later_tail)
 
 
 def _shade_vertex_cols(scene, o, d, t, tri_idx, alive, uniforms, has_lights,

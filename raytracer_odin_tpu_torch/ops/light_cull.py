@@ -49,6 +49,14 @@ def threshold() -> int:
     return env_int("RT_TPU_LIGHT_CULL_MIN", 512, lambda v: v >= 0,
                    "an integer >= 0 (lights)")
 
+
+def serves(scene) -> bool:
+    """Whether the culled light pdf (K5) serves `scene`: it has lights, and
+    at least threshold() of them."""
+    n = scene.light_p.shape[0]
+    return n > 0 and n >= threshold()
+
+
 # Light-cluster list length per ray block; longer lists sweep every cluster.
 LIST_CAP = 128
 ROW_WIDTH = 16  # p(3) u(3) v(3) ng(3) fac valid pad(2)

@@ -9,16 +9,22 @@ its Python branches read only static facts of the scene (env_tex, the
 light count against light_cull.threshold(), row_spec, tex_kinds) and the
 light chunk. So a CUDA graph captured once replays the very kernels of
 the eager call, and a graphed render is bit-equal to an eager one; the
-host enqueues one graph launch and a few input copies where it enqueued
+host enqueues a graph launch and a few input copies where it enqueued
 hundreds of kernels.
 
-`run` decides from its input whether a graph serves the segment
-(`engages`): the lanes live on a CUDA device and the scene takes the
-dense light sum (from light_cull.threshold() lights on, the culled sum,
-K5, syncs the host and is a kernel entry). The caller runs segments only
-on the compacted row path, which excludes the NaN check; every other
-path (the CPU, the full-width trace, COLS, the pool, refill) shades
-eagerly through the same physics (integrator._shade_vertex*).
+`run` decides from its input how the segment is served. On the CPU
+(`engages` false) it is called. On a CUDA device, a scene on the dense
+light sum (fewer lights than light_cull.threshold(), or none) replays the
+whole segment as one graph. A scene on the culled sum (light_cull.serves)
+replays the segment's halves (integrator's head and tail) as two graphs
+with the culled light pdf eager between them: K5 and its lists stay
+kernel entries called through light_cull's module attributes, each
+launch issued by the host inside its "light" span, and nothing of theirs
+is a graph's static buffer. The tail graph takes the head graph's outputs
+as its own inputs, so only the light pdf is copied in. The caller runs
+segments only on the compacted row path, which excludes the NaN check;
+every other path (the CPU, the full-width trace, COLS, the pool, refill)
+shades eagerly through the same physics (integrator._shade_vertex*).
 
 The cache (`GRAPHS`): one `_Tile` for each (device, scene, tile), where a
 tile is a sample's place in the frame (trace's stream_base: each tile of
@@ -27,10 +33,11 @@ memory pool that its graphs share, captured in the order they replay.
 Segments replay on the current stream in the order the sample runs them,
 and everything that reads a graph's outputs is enqueued before the next
 replay of that graph (the next bounce reads them through a sort's gather
-or a copy into the next graph's inputs; the merge reads the last before
-the sample returns). A tile's graphs are dropped when its lane budgets
-(`widths`) change or its scene is collected, and at most MAX_TILES tiles
-are kept, the least recently used dropped first.
+or a copy into the next graph's inputs; the light pdf and the tail graph
+read the head's; the merge reads the last before the sample returns). A
+tile's graphs are dropped when its lane budgets (`widths`) change or its
+scene is collected, and at most MAX_TILES tiles are kept, the least
+recently used dropped first.
 """
 
 from __future__ import annotations
@@ -53,11 +60,9 @@ CAPTURES = "shade_graph_captures"
 
 
 def engages(scene, device) -> bool:
-    """Whether a CUDA graph serves a segment of `scene`'s lanes on
-    `device`: a CUDA device and the dense light sum (fewer lights than
-    light_cull.threshold())."""
-    return (torch.device(device).type == "cuda"
-            and scene.light_p.shape[0] < light_cull.threshold())
+    """Whether CUDA graphs serve a segment of `scene`'s lanes on `device`:
+    on any CUDA device, for the dense and the culled light path alike."""
+    return torch.device(device).type == "cuda"
 
 
 def graph_key(segment, scene, tensors, light_chunk: int, tile=None):
@@ -71,21 +76,32 @@ def graph_key(segment, scene, tensors, light_chunk: int, tile=None):
             (segment.__name__,
              tuple((tuple(x.shape), x.dtype) for x in tensors),
              n_lights > 0, scene.env_tex,
-             n_lights < light_cull.threshold(), int(light_chunk)))
+             light_cull.serves(scene), int(light_chunk)))
 
 
 def run(segment, scene, tensors: tuple, light_chunk: int, tile=None,
         widths=None):
-    """segment(scene, *tensors, light_chunk), replayed from its CUDA graph
-    where `engages`, else called; tallied as one "shade" span either way.
-    `tile` and `widths` (the sample's lane budgets) place the call in the
-    cache. On the card the returned tensors are the graph's outputs,
-    rewritten by its next replay."""
+    """segment(scene, *tensors, light_chunk), replayed from CUDA graphs
+    where `engages`, else called; tallied as one "shade" span either way,
+    and one replay where graphs served it. `tile` and `widths` (the
+    sample's lane budgets) place the call in the cache. On the card the
+    returned tensors are a graph's outputs, rewritten by its next
+    replay."""
     with profiling.span("shade"):
         if not engages(scene, tensors[0].device):
             return segment(scene, *tensors, light_chunk)
-        return GRAPHS.replay(segment, scene, tensors, light_chunk, tile,
-                             widths)
+        if light_cull.serves(scene):
+            head, tail = segment.halves
+            h = GRAPHS.replay(head, scene, tensors, light_chunk, tile,
+                              widths)
+            p_light = light_cull.light_pdf_sum_culled(scene, h[0], h[1])
+            out = GRAPHS.replay(tail, scene, (*h, p_light), light_chunk,
+                                tile, widths)
+        else:
+            out = GRAPHS.replay(segment, scene, tensors, light_chunk, tile,
+                                widths)
+        profiling.count(REPLAYS)
+        return out
 
 
 class _Graph(NamedTuple):
@@ -151,16 +167,20 @@ class ShadeGraphs:
                                              light_chunk)
             else:
                 for dst, src in zip(g.inputs, tensors):
-                    dst.copy_(src)
+                    if dst is not src:
+                        dst.copy_(src)
             g.graph.replay()
-        profiling.count(REPLAYS)
         return g.outputs
 
 
 def _capture(tile: _Tile, segment, scene, tensors, light_chunk) -> _Graph:
     """Capture segment on the tile's stream into its pool, after one eager
-    warm-up run there, with static copies of `tensors` as its inputs."""
-    inputs = tuple(torch.empty_like(x).copy_(x) for x in tensors)
+    warm-up run there. Its inputs are `tensors`, each taken as it is where
+    it is an output of one of the tile's graphs (a tail's head outputs),
+    else a static copy."""
+    held = {id(x) for g in tile.graphs.values() for x in g.outputs}
+    inputs = tuple(x if id(x) in held else torch.empty_like(x).copy_(x)
+                   for x in tensors)
     current = torch.cuda.current_stream()
     tile.stream.wait_stream(current)
     with torch.cuda.stream(tile.stream):

@@ -223,22 +223,40 @@ def sample_direction(scene, mat_pos, mat_normal, mat_roughness, in_d,
     )
 
 
-def mixture_pdf(scene, mat_pos, mat_normal, mat_roughness, in_d, out_d,
-                has_lights: bool, light_chunk: int = 256):
-    """(cos_pdf + light_pdf + vndf_pdf * (1|2)) / 3 (shading.odin:153-162).
-    The light pdf is the dense sum (`light_chunk` lights a step) below
-    light_cull.threshold() lights and the culled sum (K5) from there on,
-    on any device (the JAX package takes the dense sum whenever its backend
-    is the CPU)."""
+def bsdf_pdfs(mat_normal, mat_roughness, in_d, out_d):
+    """(cos_pdf, vndf_pdf) of out_d: the mixture's terms that read no
+    light (shading.odin:153-162)."""
     p_cos = cosine_weighted_pdf(mat_normal, out_d)
     p_vndf = vndf_pdf(mat_normal, -in_d, sq(mat_roughness), out_d)
-    if has_lights:
-        if scene.light_p.shape[0] >= light_cull.threshold():
-            p_light = light_cull.light_pdf_sum_culled(scene, mat_pos, out_d)
-        else:
-            p_light = light_pdf_sum(scene, mat_pos, out_d, chunk=light_chunk)
+    return p_cos, p_vndf
+
+
+def light_pdf(scene, mat_pos, out_d, light_chunk: int = 256):
+    """The light pdf of out_d from mat_pos for a scene with lights: the
+    dense sum (`light_chunk` lights a step) below light_cull.threshold()
+    lights and the culled sum (K5) from there on, on any device (the JAX
+    package takes the dense sum whenever its backend is the CPU)."""
+    if light_cull.serves(scene):
+        return light_cull.light_pdf_sum_culled(scene, mat_pos, out_d)
+    return light_pdf_sum(scene, mat_pos, out_d, chunk=light_chunk)
+
+
+def mix_pdfs(p_cos, p_light, p_vndf):
+    """(cos_pdf + light_pdf + vndf_pdf * (1|2)) / 3: p_light None for a
+    scene without lights."""
+    if p_light is not None:
         return (p_cos + p_light + p_vndf) / 3.0
     return (p_cos + p_vndf * 2.0) / 3.0
+
+
+def mixture_pdf(scene, mat_pos, mat_normal, mat_roughness, in_d, out_d,
+                has_lights: bool, light_chunk: int = 256):
+    """(cos_pdf + light_pdf + vndf_pdf * (1|2)) / 3 (shading.odin:153-162),
+    the light pdf from `light_pdf`."""
+    p_cos, p_vndf = bsdf_pdfs(mat_normal, mat_roughness, in_d, out_d)
+    p_light = (light_pdf(scene, mat_pos, out_d, light_chunk)
+               if has_lights else None)
+    return mix_pdfs(p_cos, p_light, p_vndf)
 
 
 def shade(mat_color, mat_normal, mat_metallic, mat_roughness, in_d, out_d):

@@ -146,7 +146,7 @@ def mixture_pdf(scene, mat_pos, mat_normal, mat_roughness, in_d, out_d,
     p_cos = cosine_weighted_pdf(mat_normal, out_d)
     p_vndf = vndf_pdf(mat_normal, v3.neg(in_d), sq(mat_roughness), out_d)
     if has_lights:
-        if scene.light_p.shape[0] >= light_cull.threshold():
+        if light_cull.serves(scene):
             p_light = light_cull.light_pdf_sum_culled(
                 scene, v3.stack(mat_pos), v3.stack(out_d))
         else:

@@ -1,16 +1,19 @@
 """The compacted sample's shading segments and their CUDA graphs
 (ops/shade_graph.py): on the CPU the segments run eagerly and no graph
-counter moves, the engagement rule reads the device and the light path,
-and the cache key separates what the segment's Python reads; with the
-`gpu` marker, on the card, graphed and eager renders are bit-equal on one
-card, on a 4 x 1 mesh of one card, on the env-map and on the textured
-scene, and a scene on the culled light path (K5) stays eager.
+counter moves, the engagement rule reads the device alone, and the cache
+key separates what the segment's Python reads; with the `gpu` marker, on
+the card, graphed and eager renders are bit-equal on one card, on a 4 x 1
+mesh of one card, on the env-map and on the textured scene, and on the
+culled light path (K5 eager between each segment's two graphs) on the
+night city at 1 and 4 tiles and on the demo pushed over the threshold,
+where a wrapper on light_cull.light_sums_rows sees every K5 launch.
 
 Imports no jax, so the card tests run on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_shade_graph.py -m gpu
 """
 
+import functools
 from types import SimpleNamespace
 
 import pytest
@@ -19,7 +22,7 @@ import torch
 from raytracer_odin_tpu_torch.config import RenderConfig
 from raytracer_odin_tpu_torch.io import gltf
 from raytracer_odin_tpu_torch.models import assets, build
-from raytracer_odin_tpu_torch.ops import integrator, shade_graph
+from raytracer_odin_tpu_torch.ops import integrator, light_cull, shade_graph
 from raytracer_odin_tpu_torch.parallel import mesh as pmesh
 from raytracer_odin_tpu_torch.render import accum, runtime
 from raytracer_odin_tpu_torch.utils import profiling
@@ -68,22 +71,25 @@ def _fake_scene(n_lights=4, env_tex=-1):
 @pytest.mark.parametrize("device,lights,engaged", [
     ("cpu", 4, False),
     ("cpu", 0, False),
-    ("cuda", 600, False),
+    ("cuda", 600, True),
 ])
 def test_engages_reads_device_and_light_path(monkeypatch, device, lights,
                                              engaged):
-    """The CPU never engages a graph; on a card the culled light path
-    (from light_cull.threshold() lights on) does not either."""
+    """The CPU never engages a graph; a card does, on the culled light
+    path (from light_cull.threshold() lights on) too."""
     monkeypatch.delenv("RT_TPU_LIGHT_CULL_MIN", raising=False)
     assert shade_graph.engages(_fake_scene(lights),
                                torch.device(device)) is engaged
 
 
-def test_engages_follows_the_light_threshold(monkeypatch):
-    """RT_TPU_LIGHT_CULL_MIN moves a four-light scene onto the culled path,
-    which stays eager."""
-    monkeypatch.setenv("RT_TPU_LIGHT_CULL_MIN", "4")
-    assert not shade_graph.engages(_fake_scene(4), torch.device("cuda"))
+@pytest.mark.parametrize("cull_min,culled", [("4", True), ("5", False)])
+def test_engages_follows_the_light_threshold(monkeypatch, cull_min, culled):
+    """RT_TPU_LIGHT_CULL_MIN moves a four-light scene onto the culled path
+    (light_cull.serves, which run serves by the segment's halves) or keeps
+    it on the dense one; a card engages graphs on both."""
+    monkeypatch.setenv("RT_TPU_LIGHT_CULL_MIN", cull_min)
+    assert light_cull.serves(_fake_scene(4)) is culled
+    assert shade_graph.engages(_fake_scene(4), torch.device("cuda"))
 
 
 def _key_inputs(width=1024):
@@ -195,16 +201,93 @@ def test_graphed_render_bit_equal(cuda, tmp_path, monkeypatch, name, tiles):
         assert torch.equal(getattr(g_stats, f), getattr(e_stats, f)), f
 
 
+def _k5_wrapped(monkeypatch):
+    """A wrapper on light_cull.light_sums_rows, as the benchmark's K5 span
+    installs it: the K5 launches each of its calls made (the program's
+    light_launches counter)."""
+    seen = []
+    orig = light_cull.light_sums_rows
+
+    def launches():
+        return profiling.PROCESS.counters.get("light_launches", 0)
+
+    @functools.wraps(orig)
+    def wrapper(*args, **kwargs):
+        before = launches()
+        out = orig(*args, **kwargs)
+        seen.append(launches() - before)
+        return out
+
+    monkeypatch.setattr(light_cull, "light_sums_rows", wrapper)
+    return seen
+
+
+def _night_or_demo(name, tmp_path, monkeypatch):
+    if name == "citynight":
+        monkeypatch.delenv("RT_TPU_LIGHT_CULL_MIN", raising=False)
+    else:
+        monkeypatch.setenv("RT_TPU_LIGHT_CULL_MIN", "1")
+    return assets.generate(name, tmp_path)["gltf"]
+
+
 @pytest.mark.gpu
-def test_culled_light_path_stays_eager(cuda, tmp_path, monkeypatch):
-    """The demo pushed over the light threshold (RT_TPU_LIGHT_CULL_MIN=1):
-    its light pdf is K5's, and no segment is graphed."""
-    monkeypatch.setenv("RT_TPU_LIGHT_CULL_MIN", "1")
-    host, scene = _scene(assets.generate("demo", tmp_path)["gltf"], cuda)
-    cfg = RenderConfig(width=192, height=108, ray_depth=4, samples=2,
-                       samples_per_step=1, intersector="pallas",
+@pytest.mark.parametrize("name,tiles", [("citynight", 1), ("citynight", 4),
+                                        ("demo", 1)])
+def test_culled_light_path_graphed_bit_equal(cuda, tmp_path, monkeypatch,
+                                             name, tiles):
+    """The night city (1,728 lights) at 1 and 4 tiles, and the demo pushed
+    over the threshold (RT_TPU_LIGHT_CULL_MIN=1): each segment's head and
+    tail graphed, K5 eager between them, then every segment eager:
+    bit-equal Stats, rays cast and live lanes a bounce, one replay a shade
+    span, two graphs a segment, and the same K5 launches."""
+    host, scene = _scene(_night_or_demo(name, tmp_path, monkeypatch), cuda)
+    assert light_cull.serves(scene)
+    cfg = RenderConfig(width=320, height=184, ray_depth=8, samples=4,
+                       samples_per_step=2, intersector="pallas",
+                       compact="auto")
+    graphed, g_stats = _render(scene, host, cfg, cuda, tiles)
+    ph = graphed.phases
+    assert graphed.overflow == 0 and graphed.lane_schedule is not None
+    shades = ph.step_spans["shade"].calls
+    assert shades == 2 * 2 * tiles * cfg.ray_depth
+    assert ph.step_counters[shade_graph.REPLAYS] == shades
+    assert ph.step_spans["light"].calls == shades
+    captures = ph.counters[shade_graph.CAPTURES]
+    assert captures == len(shade_graph.GRAPHS)
+    assert len(shade_graph.GRAPHS._tiles) == tiles
+    assert captures % 2 == 0
+    assert tiles * 2 * 2 <= captures <= tiles * 2 * cfg.ray_depth
+
+    monkeypatch.setattr(shade_graph, "engages", lambda scene, device: False)
+    eager, e_stats = _render(scene, host, cfg, cuda, tiles)
+    assert shade_graph.REPLAYS not in eager.phases.counters
+    assert eager.lane_schedule == graphed.lane_schedule
+    assert eager.rays_cast == graphed.rays_cast
+    assert eager.alive_counts == graphed.alive_counts
+    assert (eager.phases.counters["light_launches"]
+            == graphed.phases.counters["light_launches"])
+    for f in ("first", "last", "total", "total_sq", "count"):
+        assert torch.equal(getattr(g_stats, f), getattr(e_stats, f)), f
+
+
+@pytest.mark.gpu
+def test_k5_wrapper_sees_every_launch_of_a_graphed_render(cuda, tmp_path,
+                                                           monkeypatch):
+    """A wrapper monkeypatched onto light_cull.light_sums_rows (the
+    benchmark's K5 span) is called for every K5 launch of a graphed night
+    city render, one launch a call, one call a shade span: K5 stays out
+    of the graphs."""
+    host, scene = _scene(_night_or_demo("citynight", tmp_path, monkeypatch),
+                         cuda)
+    seen = _k5_wrapped(monkeypatch)
+    cfg = RenderConfig(width=320, height=184, ray_depth=8, samples=4,
+                       samples_per_step=2, intersector="pallas",
                        compact="auto")
     res, _ = _render(scene, host, cfg, cuda, 1)
-    assert res.lane_schedule is not None
-    assert not set(COUNTERS) & set(res.phases.counters)
-    assert len(shade_graph.GRAPHS) == 0
+    ph = res.phases
+    assert ph.step_counters[shade_graph.REPLAYS] == ph.step_spans[
+        "shade"].calls > 0
+    assert ph.counters[shade_graph.CAPTURES] > 0
+    assert seen and set(seen) == {1}
+    assert len(seen) == ph.counters["light_launches"]
+    assert len(seen) == ph.spans["light"].calls
