@@ -117,6 +117,7 @@ wall time:
                  run bit-equal, K1 and K2 on a wave of the steady state
                  against their plain versions
  15. cols        the demo through the columnar trace (integrator.COLS = 1),
+                 its shading graphed as the row form's is,
                  calibration plus STEPS steps: overflow 0, K1 and K2 8 a
                  step and 8 in calibration, K1 and K2 against their plain
                  versions on the columnar route's sorted bounce-1 batch,
@@ -132,15 +133,7 @@ wall time:
                  batch with the culled pdf against the dense sum there
                  (edge_flips), the frame against the row-form citynight
                  frame as in cols
- 17. sort_every  the demo with integrator.SORT_EVERY = 2 (bounces 2, 4, 6
-                 cast unsorted at the previous width, dead lanes as far
-                 rays among the live ones): overflow 0, K1 and K2 8 a step,
-                 K1 and K2 against their plain versions on bounce 2's batch
-                 with its mean list, the frame equal to the sorted route's
-                 but for the pixels grouping_flips explains, the lanes
-                 whose path differs without changing their pixel found
-                 (live_lane_ids) and explained alike, Mrays/s beside it
- 18. accuracy    the accuracy harness (raytracer_odin_tpu_torch/accuracy)
+ 17. accuracy    the accuracy harness (raytracer_odin_tpu_torch/accuracy)
                  on the BASELINE configs at full size: K1 and K2 against
                  their plain versions on the sorted, compacted bounce-1
                  batches of cfg3_textured (800x600) and cfg4_envmap
@@ -155,19 +148,19 @@ wall time:
                  row with its seconds, the report under chiprun_out/; K1 and
                  K2 launched once a bounce of every trace, K3-K5 never;
                  peak memory and the phase's wall time
- 19. with --profile: one more step of each path under torch.profiler,
+ 18. with --profile: one more step of each path under torch.profiler,
      device time by kernel class, kernels a step and the device's busy
      share
- 20. the kernels JSON line (K1-K5 and K1 with its tmax row; each with its
+ 19. the kernels JSON line (K1-K5 and K1 with its tmax row; each with its
      design and registers, its SASS counts, SM clock and issue floors, K2-K5
      with their warp-vote rates; K1 and K2 with their checks on the mesh
      shard's, the pool wave's, the refill iteration's, the columnar
-     bounce-1, the skip-sort bounce's and the accuracy configs' bounce-1
-     batches, and their launches in the accuracy phase; K5 on the columnar
-     citynight batch), then the {"ok": true, ...} line.
+     bounce-1 and the accuracy configs' bounce-1 batches, and their
+     launches in the accuracy phase; K5 on the columnar citynight batch),
+     then the {"ok": true, ...} line.
 
-The smoke refuses to start with RT_TPU_TWO_PHASE, RT_TPU_COLS or
-RT_TPU_SORT_EVERY set: the paths set those switches themselves.
+The smoke refuses to start with RT_TPU_TWO_PHASE or RT_TPU_COLS set: the
+paths set those switches themselves.
 
 The check phase renders the four golden images of tests/golden/ through
 "pallas" (cube and cornell at rtol 1e-3, atol 1e-4; the glossy textured and
@@ -1355,11 +1348,10 @@ def main(argv=None) -> int:
     from raytracer_odin_tpu_torch.render import runtime as rt
     from raytracer_odin_tpu_torch.utils import prng
 
-    if trav.TWO_PHASE_K or integ.COLS or integ.SORT_EVERY != 1:
-        raise AssertionError("run without RT_TPU_TWO_PHASE, RT_TPU_COLS and "
-                             "RT_TPU_SORT_EVERY: the paths set two-phase "
-                             "culling, the columnar trace and the re-sort "
-                             "cadence themselves")
+    if trav.TWO_PHASE_K or integ.COLS:
+        raise AssertionError("run without RT_TPU_TWO_PHASE and RT_TPU_COLS: "
+                             "the paths set two-phase culling and the "
+                             "columnar trace themselves")
 
     ph = Phases()
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -1646,8 +1638,7 @@ def main(argv=None) -> int:
             f"{paths['pool']['step_ms']:.3f} ms, waves "
             f"{paths['pool']['waves']}")
 
-    # 15-17. the columnar trace on the demo and on citynight, and the
-    # re-sort cadence
+    # 15-16. the columnar trace on the demo and on citynight
     s = time.perf_counter()
     paths["cols"] = cols_path(rt, integ, trav, pi, scene, cfg, fov_x, dev,
                               counters, reps, card, demo, kb["g"],
@@ -1667,15 +1658,8 @@ def main(argv=None) -> int:
     ph.done("path cols citynight", s,
             f"{paths['cols citynight']['mrays']:.3f} Mrays/s (row form "
             f"{paths['citynight']['mrays']:.3f}; {card})")
-    s = time.perf_counter()
-    paths["sort_every"] = sort_every_path(rt, integ, trav, pi, scene, cfg,
-                                          fov_x, dev, counters, reps, card,
-                                          demo, kb["g"], args.profile)
-    ph.done("path sort_every", s,
-            f"{paths['sort_every']['mrays']:.3f} Mrays/s (sorted every "
-            f"bounce {demo['mrays']:.3f}; {card})")
 
-    # 18. the accuracy harness on the BASELINE configs
+    # 17. the accuracy harness on the BASELINE configs
     s = time.perf_counter()
     acc = accuracy_path(rt, integ, trav, pi, dev, counters, reps, card,
                         rehearsal)
@@ -1752,7 +1736,6 @@ def main(argv=None) -> int:
                "pool_wave": paths["pool"]["k1"],
                "refill_iteration": paths["refill"]["k1"],
                "cols_bounce1": paths["cols"]["k1"],
-               "sort_every_skip_bounce": paths["sort_every"]["k1"],
                **{f"accuracy_{n}_bounce1": floored("K1", c["K1"], mhz1)
                   for n, c in acc["checks"].items()}}),
         # K1 with its tmax row: the demo's sorted bounce-1 batch with
@@ -1779,7 +1762,6 @@ def main(argv=None) -> int:
                "pool_wave": paths["pool"]["k2"],
                "refill_iteration": paths["refill"]["k2"],
                "cols_bounce1": paths["cols"]["k2"],
-               "sort_every_skip_bounce": paths["sort_every"]["k2"],
                **{f"accuracy_{n}_bounce1": floored("K2", c["K2"], mhz2)
                   for n, c in acc["checks"].items()}}),
         # K3: the brute path's bounce-0 camera rays (every bounce sweeps
@@ -2994,101 +2976,6 @@ def cols_citynight_path(rt, integ, trav, lc, scene, cfg, fov_x, dev,
                 calibration=r["calibration"], frame=frame)
 
 
-SORT_EVERY = 2
-
-
-def sort_every_path(rt, integ, trav, pi, scene, cfg, fov_x, dev, counters,
-                    reps, card, demo, g, profile):
-    """Phase 17: the demo with integ.SORT_EVERY = 2 (bounces 2, 4 and 6
-    skip the sort): overflow 0, K1 and K2 8 a step, K1 and K2 against
-    their plain versions on the first skip-sort bounce's batch (bounce 2:
-    unsorted, at bounce 1's width, dead lanes as far rays among the live
-    ones) with its mean list, the frame equal to the sorted route's but
-    for the pixels grouping_flips explains, Mrays/s beside it."""
-    import torch
-
-    from raytracer_odin_tpu_torch.render import accum
-    from raytracer_odin_tpu_torch.utils import prng
-
-    steps = cfg.samples
-    with setting(integ, "SORT_EVERY", SORT_EVERY):
-        r = render_path(rt, scene, cfg, fov_x, dev, counters, steps)
-        print_render(r, steps, card)
-        res = r["res"]
-        if res.overflow != 0 or res.lane_schedule is None:
-            raise AssertionError(f"sort_every: overflow {res.overflow}")
-        check_launches("sort_every", r, {"K1": DEPTH, "K2": DEPTH},
-                       {"K1": DEPTH, "K2": DEPTH}, dev.type != "cuda")
-        step = rt.make_render_step(cfg, fov_x,
-                                   lane_schedule=res.lane_schedule,
-                                   device=dev)
-        st = accum.init_stats(1, cfg.height, cfg.width, device=dev)
-        _, seen = record_sweeps(trav, lambda: step(
-            scene, st, prng.key_from_seed(cfg.seed), 0))
-        syncs = sync_sites(lambda: step(
-            scene, st, prng.key_from_seed(cfg.seed), 1), dev)
-        if profile:
-            profile_step(rt, accum_copy(res.stats), scene, cfg, fov_x, None,
-                         dev, "sort_every", step=step)
-    words, rays = seen[2]
-    dead = rays[3] == 1.0
-    dead &= (rays[0] >= 1e37) & (rays[4] == 0) & (rays[5] == 0)
-    live_at = torch.nonzero(~dead).flatten()
-    if not (rays.shape[1] == seen[1][1].shape[1] and bool(dead.any())
-            and live_at.numel()
-            and int(torch.nonzero(dead).flatten()[0]) < int(live_at[-1])):
-        raise AssertionError("sort_every: bounce 2's batch is not bounce "
-                             "1's width with dead lanes among the live ones")
-    k1, k2 = batch_checks(pi, trav, scene, seen[2], dev, reps)
-    counts1, _ = trav.sweep_lists(scene, *seen[1], g,
-                                  trav.exact_cull_layout(scene)[1])
-    batch = {"lanes": rays.shape[1], "dead": int(dead.sum()),
-             "sorted_bounce1_mean_list": float(counts1.float().mean())}
-    del seen, st
-    for name, m in (("K1", k1), ("K2", k2)):
-        print(f"  [sort_every] {name} on bounce 2's batch: {json.dumps(m)}",
-              flush=True)
-    # lanes whose path differs from the sorted route's, whatever their
-    # pixel: each one's hit must depend on the rays its block holds
-    lanes = []
-    for sample in range(steps):
-        ids = {}
-        for every in (1, SORT_EVERY):
-            with setting(integ, "SORT_EVERY", every):
-                ids[every] = live_lane_ids(rt, integ, scene, cfg, fov_x,
-                                           res.lane_schedule, sample)
-        moved = torch.cat([torch.cat([a[~torch.isin(a, b)],
-                                      b[~torch.isin(b, a)]])
-                           for a, b in zip(ids[1], ids[SORT_EVERY])])
-        lanes += [(int(i), sample) for i in torch.unique(moved).tolist()]
-    if len(lanes) > MAX_FLIPS:
-        raise AssertionError(f"sort_every: {len(lanes)} lanes take another "
-                             f"path than in the sorted route")
-    lane_flips_ = [f for i, sample in lanes
-                   for f in grouping_flips(
-                       rt, integ, scene, cfg, fov_x,
-                       [(i // cfg.width, i % cfg.width)], sample + 1,
-                       first_sample=sample)]
-    diff, flips = schedulers_agree(rt, integ, scene, cfg, fov_x, res,
-                                   demo["res"], "sort_every", None, steps,
-                                   lanes=len(lanes))
-    step_ms = sum(r["step_s"]) / len(r["step_s"]) * 1e3
-    print(f"  [sort_every] host syncs of one step {json.dumps(syncs)}",
-          flush=True)
-    print(f"  [sort_every] bounce 2's batch {json.dumps(batch)}; step "
-          f"{step_ms:.3f} ms, {r['mrays']:.3f} Mrays/s against the sorted "
-          f"route's {demo['mrays']:.3f}; rays {res.rays_cast} against "
-          f"{demo['res'].rays_cast}; pixels that differ, each explained "
-          f"(x, row, sample, bounce, t over its own lists, t over every "
-          f"cluster): {flips}; lanes whose path differs but not their "
-          f"pixel, each explained alike: {lane_flips_} ({card})", flush=True)
-    return dict(path_info(scene, g), k1=dict(k1, batch=batch), k2=k2,
-                mrays=r["mrays"], step_ms=step_ms, peak_gib=r["peak_gib"],
-                launches=r["launches"], per_step=r["per_step"],
-                calibration=r["calibration"], max_diff=diff, flips=flips,
-                lane_flips=lane_flips_, syncs=syncs)
-
-
 # The configs of the accuracy phase whose sorted, compacted bounce-1
 # batches K1 and K2 are held against their plain versions: textured
 # glossy paths and the env map's escaping lanes.
@@ -3121,7 +3008,7 @@ def accuracy_launches(configs, render, rows, draws, chunk) -> int:
 
 def accuracy_path(rt, integ, trav, pi, dev, counters, reps, card,
                   rehearsal):
-    """Phase 18: the accuracy harness (raytracer_odin_tpu_torch/accuracy)
+    """Phase 17: the accuracy harness (raytracer_odin_tpu_torch/accuracy)
     on the five BASELINE configs at full size: K1 and K2 against their
     plain versions on the sorted, compacted bounce-1 batches of
     ACCURACY_BATCHES; then, launches counted from zero, the same-seed half
@@ -3211,40 +3098,6 @@ def accuracy_path(rt, integ, trav, pi, dev, counters, reps, card,
     shutil.rmtree(out_dir)
     return {"launches": launches, "checks": checks, "render_s": render_s,
             "peak_gib": peak, "records": len(records)}
-
-
-def live_lane_ids(rt, integ, scene, cfg, fov_x, schedule, sample):
-    """The sorted stream ids of the lanes that continue after each bounce
-    of one compacted sample of `cfg` (the alive mask each shading segment
-    returns through integ.shade_graph.run, its first lanes read with the
-    ids prng.uniforms was given for the same lanes: bounce 0's mask is
-    padded to whole ray blocks)."""
-    import torch
-
-    from raytracer_odin_tpu_torch.utils import prng
-
-    graphs = integ.shade_graph
-    real_u, real_run = prng.uniforms, graphs.run
-    last, seen = {}, []
-
-    def uniforms(key, samples, tags, sids, n):
-        last["sids"] = sids
-        return real_u(key, samples, tags, sids, n)
-
-    def run(*args, **kw):
-        out = real_run(*args, **kw)
-        sids = last["sids"].reshape(-1)
-        seen.append(torch.sort(sids[out[1][:sids.numel()]]).values)
-        return out
-
-    prng.uniforms, graphs.run = uniforms, run
-    try:
-        rt.sample_pass(scene, prng.key_from_seed(cfg.seed), sample, fov_x,
-                       cfg.width, cfg.height,
-                       rt._trace_options(cfg, lane_schedule=schedule))
-    finally:
-        prng.uniforms, graphs.run = real_u, real_run
-    return seen
 
 
 def sched_cli_path(dev, demo_gltf, w, h, rehearsal):

@@ -20,19 +20,18 @@ The debug surface rides the full-width trace: registered probes
 (want_aux, ops/probes.py), the per-lane ray log (log_paths) and the live-
 lane NaN check (check_nans) each turn compaction off.
 
-Two experiments of the JAX package ride the compacted trace, each off by
-default and read from the environment at import under its JAX name:
-  * COLS (RT_TPU_COLS=1) — `_trace_compacted_cols`: the lane state as a
-    [12, N] column table and the shade through ops/shading_cols.py;
-  * SORT_EVERY (RT_TPU_SORT_EVERY=k) — sort and compact only on bounces b
-    with (b - 1) % k == 0; the bounces between cast and shade every lane in
-    the previous bounce's order, dead lanes as far rays, with no slice and
-    no retirement.
+The compacted trace holds its lane state in one of two layouts (Layout),
+chosen at each call from COLS, read at import from the JAX package's
+RT_TPU_COLS (0 by default): ROWS, packed rows [N, 12], shaded by
+first_segment and later_segment; or COLUMNS, the JAX package's columnar
+trace, a [12, N] column table shaded through ops/shading_cols.py by
+first_segment_cols and later_segment_cols. Both run the same loop, the
+same sorts and draws, and the same shading graphs on the card.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -57,10 +56,12 @@ from raytracer_odin_tpu_torch.utils.math3d import (
     normalize,
 )
 
-# Re-sort cadence of the compacted trace: sort and compact on bounces b with
-# (b - 1) % SORT_EVERY == 0 (1: every bounce, the default route).
-SORT_EVERY = env_int("RT_TPU_SORT_EVERY", 1, lambda v: v >= 1,
-                     "an integer >= 1 (bounces a sort)")
+# The JAX package's re-sort cadence (RT_TPU_SORT_EVERY=k: sort and compact
+# every k-th bounce only) is not ported: on the H100 its skip-sort bounces
+# measured slower. The variable is read to refuse any other value than 1.
+env_int("RT_TPU_SORT_EVERY", 1, lambda v: v == 1,
+        "1 only: the skip-sort cadence is not ported, since it measured "
+        "slower on the H100")
 # Columnar compacted trace (1) or the packed [N, 12] row state (0).
 COLS = env_int("RT_TPU_COLS", 0, lambda v: v in (0, 1), "0 or 1")
 
@@ -419,47 +420,130 @@ def later_segment(scene, state, t, tri_idx, alive, uniforms,
 later_segment.halves = (later_head, later_tail)
 
 
-def _shade_vertex_cols(scene, o, d, t, tri_idx, alive, uniforms, has_lights,
-                       throughput, radiance, light_chunk: int = 256):
-    """Columnar `_shade_vertex`: o, d, throughput and radiance are [3, N]
-    column triples, uniforms six [N] columns. The same operations in the
-    same order (env on a miss, emission with the throughput before its
-    update, the value/pdf continuation rule), the shade through
-    ops/shading_cols.py. `_point_material` keeps its [N, k] row form: o and
-    d are stacked once for it, and its normal, color and emission come back
-    in one splat.
+def later_head_cols(scene, state, t, tri_idx, alive, uniforms,
+                    light_chunk: int):
+    """later_head of the column state [12, N], whose o, d, throughput and
+    radiance are [3, N] column triples; draws uniforms [N, 6], read as six
+    columns. The same operations in the same order as the row form, the
+    shade through ops/shading_cols.py. `_point_material` keeps its [N, k]
+    row form: o and d are stacked once for it, and its normal, color and
+    emission come back in one splat. pos and new_d are returned as [N, 3]
+    rows, which the light pdf takes (shading.light_pdf)."""
+    o, d = state[0:3], state[3:6]
+    throughput, radiance = state[6:9], state[9:12]
+    hit = (tri_idx >= 0) & alive
+    missed = (~(tri_idx >= 0)) & alive
 
-    Returns (pos, new_d, throughput, radiance, cont); pos and new_d are
-    garbage on dead lanes (masked by `cont`). Tallied as the "shade"
-    span."""
-    with profiling.span("shade"):
-        hit = (tri_idx >= 0) & alive
-        missed = (~(tri_idx >= 0)) & alive
+    if scene.env_tex >= 0:
+        env = texture.sample_env_cols(scene, d, scene.env_tex)
+        radiance = radiance + torch.where(missed, throughput * env, 0.0)
 
-        if scene.env_tex >= 0:
-            env = texture.sample_env_cols(scene, d, scene.env_tex)
-            radiance = radiance + torch.where(missed, throughput * env, 0.0)
+    m = _point_material(scene, v3c.stack(o), v3c.stack(d), t, tri_idx)
+    rows = v3c.splat(torch.cat([m["normal"], m["color"], m["emission"]],
+                               dim=-1))
+    normal = torch.where(m["inside"], -rows[0:3], rows[0:3])
+    color, emission = rows[3:6], rows[6:9]
+    pos = o + d * t
+    rough, metal = m["roughness"], m["metallic"]
 
-        m = _point_material(scene, v3c.stack(o), v3c.stack(d), t, tri_idx)
-        rows = v3c.splat(torch.cat([m["normal"], m["color"],
-                                    m["emission"]], dim=-1))
-        normal = torch.where(m["inside"], -rows[0:3], rows[0:3])
-        color, emission = rows[3:6], rows[6:9]
-        pos = o + d * t
-        rough, metal = m["roughness"], m["metallic"]
+    new_d = shading_cols.sample_direction(scene, pos, normal, rough, d,
+                                          uniforms.unbind(-1),
+                                          scene.light_p.shape[0] > 0)
+    p_cos, p_vndf = shading_cols.bsdf_pdfs(normal, rough, d, new_d)
+    value = shading_cols.shade(color, normal, metal, rough, d, new_d)
+    radiance = radiance + torch.where(hit, throughput * emission, 0.0)
+    return (v3c.stack(pos), v3c.stack(new_d), p_cos, p_vndf, value, hit,
+            throughput, radiance)
 
-        new_d = shading_cols.sample_direction(scene, pos, normal, rough, d,
-                                              uniforms, has_lights)
-        pdf = shading_cols.mixture_pdf(scene, pos, normal, rough, d, new_d,
-                                       has_lights, light_chunk=light_chunk)
-        value = shading_cols.shade(color, normal, metal, rough, d, new_d)
 
-        radiance = radiance + torch.where(hit, throughput * emission, 0.0)
-        # Continuation rule (raytracer.odin:495): NaN compares false.
-        cont = (v3c.norm_l1(value) / pdf > 1e-5) & hit
-        throughput = torch.where(cont, throughput * (value / pdf),
-                                 throughput)
-    return pos, new_d, throughput, radiance, cont
+def later_tail_cols(scene, pos, new_d, p_cos, p_vndf, value, hit,
+                    throughput, radiance, p_light, light_chunk: int):
+    """later_tail of the column state: (state [12, N], alive [N])."""
+    pdf = shading.mix_pdfs(p_cos, p_light, p_vndf)
+    # Continuation rule (raytracer.odin:495): NaN compares false.
+    cont = (v3c.norm_l1(value) / pdf > 1e-5) & hit
+    throughput = torch.where(cont, throughput * (value / pdf), throughput)
+    return torch.cat([pos.T, new_d.T, throughput, radiance]), cont
+
+
+def later_segment_cols(scene, state, t, tri_idx, alive, uniforms,
+                       light_chunk: int):
+    """later_segment of the column state [12, N]: later_head_cols, the
+    light pdf, later_tail_cols."""
+    head = later_head_cols(scene, state, t, tri_idx, alive, uniforms,
+                           light_chunk)
+    return later_tail_cols(scene, *head, _head_light_pdf(scene, head,
+                                                         light_chunk),
+                           light_chunk)
+
+
+later_segment_cols.halves = (later_head_cols, later_tail_cols)
+
+
+def first_head_cols(scene, o, d, t, tri_idx, uniforms, light_chunk: int):
+    """first_head of the column state: the camera rays o, d [..., 3], their
+    hits t, tri_idx [...] and draws uniforms [..., 6] are flattened and
+    padded to whole RB blocks before the shade, as the JAX package's
+    columnar trace does (padding lanes dead: alive false, tri_idx -1). On
+    the CPU this padding can change a live lane's bits: an elementwise
+    op's vector loop leaves its last lanes to a scalar loop, and atan2
+    (the env map) rounds apart in the two."""
+    dev = t.device
+    n0 = t.numel()
+    n0p = -(-n0 // pi.RB) * pi.RB
+    state = torch.zeros((12, n0p), dtype=torch.float32, device=dev)
+    state[0:3, :n0] = o.reshape(n0, 3).T
+    state[3:6, :n0] = d.reshape(n0, 3).T
+    state[6:9] = 1.0
+    t0 = torch.zeros(n0p, dtype=torch.float32, device=dev)
+    t0[:n0] = t.reshape(n0)
+    idx0 = torch.full((n0p,), -1, dtype=tri_idx.dtype, device=dev)
+    idx0[:n0] = tri_idx.reshape(n0)
+    u0 = torch.zeros((n0p, 6), dtype=torch.float32, device=dev)
+    u0[:n0] = uniforms.reshape(n0, 6)
+    alive = torch.arange(n0p, device=dev) < n0
+    return later_head_cols(scene, state, t0, idx0, alive, u0, light_chunk)
+
+
+def first_tail_cols(scene, *args):
+    """first_tail of the column state: later_tail_cols of bounce 0's padded
+    lanes, (state [12, Npad], alive [Npad]); a function of its own, so that
+    bounce 0's graph is its own (shade_graph keys a graph by the segment's
+    name and its inputs' shapes)."""
+    return later_tail_cols(scene, *args)
+
+
+def first_segment_cols(scene, o, d, t, tri_idx, uniforms, light_chunk: int):
+    """first_segment of the column state: first_head_cols, the light pdf,
+    first_tail_cols; (state [12, Npad], alive [Npad])."""
+    head = first_head_cols(scene, o, d, t, tri_idx, uniforms, light_chunk)
+    return first_tail_cols(scene, *head, _head_light_pdf(scene, head,
+                                                         light_chunk),
+                           light_chunk)
+
+
+first_segment_cols.halves = (first_head_cols, first_tail_cols)
+
+
+class Layout(NamedTuple):
+    """The compacted trace's lane state: its lane axis (0: packed rows
+    [N, 12]; 1: a [12, N] column table) and the segments that shade and
+    pack it. Its fields are o 0:3, d 3:6, throughput 6:9, radiance 9:12."""
+    axis: int
+    first: Callable
+    later: Callable
+
+    def lanes(self, state, ix):
+        """The state's lanes ix (a slice or a permutation)."""
+        return state[ix] if self.axis == 0 else state[:, ix]
+
+    def field(self, state, a: int, b: int):
+        """Fields a:b of every lane, an [N, b - a] view."""
+        return state[:, a:b] if self.axis == 0 else state[a:b].T
+
+
+ROWS = Layout(0, first_segment, later_segment)
+COLUMNS = Layout(1, first_segment_cols, later_segment_cols)
 
 
 def check_live_nans(sample, bounce: int, stage: str, stream_ids, checks):
@@ -616,13 +700,14 @@ def compaction_applies(opts: TraceOptions, device) -> bool:
 
 
 def first_bounce(scene, o, d, key, sample, stream_ids=None,
-                 light_chunk: int = 256, tile=None, widths=None):
+                 light_chunk: int = 256, tile=None, widths=None,
+                 layout: Layout = ROWS):
     """Bounce 0 of the compacted wavefront: the tiled full-width cast of the
-    camera rays o, d [..., 3] and their shading segment (first_segment),
-    run by shade_graph.run: the lane state [Npad, 12] (o, d, throughput,
-    radiance; Npad is the lane count rounded up to RB) with its alive mask
-    [Npad]. Padding lanes are dead; a lane draws with its stream id
-    (stream_ids [...], by default its flat position). tile and widths
+    camera rays o, d [..., 3] and their shading segment (layout.first),
+    run by shade_graph.run: the lane state (o, d, throughput, radiance of
+    Npad lanes, the lane count rounded up to RB, in the layout) with its
+    alive mask [Npad]. Padding lanes are dead; a lane draws with its stream
+    id (stream_ids [...], by default its flat position). tile and widths
     place the sample in the graph cache (shade_graph.run); on the card the
     two tensors are a graph's outputs, rewritten by the next call with the
     same key."""
@@ -634,207 +719,62 @@ def first_bounce(scene, o, d, key, sample, stream_ids=None,
         stream_ids = torch.arange(o.shape[:-1].numel(), dtype=torch.int32,
                                   device=o.device).reshape(batch_shape)
     uniforms = prng.uniforms(key, sample, 0, stream_ids, 6)
-    return shade_graph.run(first_segment, scene,
+    return shade_graph.run(layout.first, scene,
                            (o, d, t, tri_idx, uniforms), light_chunk,
                            tile=tile, widths=widths)
 
 
-def sort_lanes(state, alive, aabb8, n_super: int, budget: int):
+def sort_lanes(state, alive, aabb8, n_super: int, budget: int,
+               layout: Layout = ROWS):
     """The front half of one compacted bounce: dead lanes become degenerate
     far rays (empty masks; their o, d in `state` are overwritten in place),
     K1 masks every lane, and the lanes are sorted by (dead|octant, mask
     words), so the alive lanes form a prefix. The bounce's batch is the
     first `budget` lanes, rounded down to RB and kept within [RB, N].
 
-    Returns (the sorted state [N, 12], perm [N] source lane of each sorted
-    lane, the batch's RAY_EPS-offset kernel rows [8, s_width] and their
-    mask words [W, s_width]). Tallied as the "sort" span."""
+    Returns (the sorted state, perm [N] source lane of each sorted lane,
+    the batch's RAY_EPS-offset kernel rows [8, s_width] and their mask
+    words [W, s_width]). Tallied as the "sort" span."""
     rb = pi.RB
-    width = state.shape[0]
+    width = state.shape[layout.axis]
     s_width = max(rb, min(width, (int(budget) // rb) * rb))
     with profiling.span("sort"):
-        rays_pre = _far_rows(state, alive)
+        rays_pre = _far_rows(state, alive, layout)
         words_p = pi.cluster_masks_rows(aabb8, rays_pre, n_super)
         keys, word_slots = traverse._lex_sort_keys(
-            alive, traverse._ray_octant(state[:, 3:6]),
+            alive, traverse._ray_octant(layout.field(state, 3, 6)),
             [words_p[i] for i in range(words_p.shape[0])], n_super,
         )
         perm = traverse.lex_sort_perm(keys)
-        state = state[perm]
+        state = layout.lanes(state, perm)
         words = torch.stack([keys[i][perm[:s_width]] for i in word_slots],
                             dim=0)
-        return state, perm, _rows(state[:s_width]), words
+        return (state, perm,
+                _rows(layout.lanes(state, slice(None, s_width)), layout),
+                words)
 
 
-def _rows(state):
-    """RAY_EPS-offset kernel rows [8, N] of the packed [N, 12] state."""
-    rows = torch.zeros((8, state.shape[0]), dtype=torch.float32,
+def _rows(state, layout: Layout):
+    """RAY_EPS-offset kernel rows [8, N] of the lane state."""
+    o, d = layout.field(state, 0, 3), layout.field(state, 3, 6)
+    rows = torch.zeros((8, o.shape[0]), dtype=torch.float32,
                        device=state.device)
-    rows[0:3] = (state[:, 0:3] + state[:, 3:6] * RAY_EPS).T
-    rows[3:6] = state[:, 3:6].T
+    rows[0:3] = (o + d * RAY_EPS).T
+    rows[3:6] = d.T
     return rows
 
 
-def _far_rows(state, alive):
-    """Dead lanes of the packed [N, 12] state become far rays (BIG, 0, 0)
-    along +x (empty masks), in place; returns the lanes' kernel rows
-    [8, N] in their order."""
+def _far_rows(state, alive, layout: Layout):
+    """Dead lanes of the lane state become far rays (BIG, 0, 0) along +x
+    (empty masks), in place; returns the lanes' kernel rows [8, N] in their
+    order."""
     dev = state.device
     far_o = device_vector((BIG, 0.0, 0.0), device=dev)
     unit_x = device_vector((1.0, 0.0, 0.0), device=dev)
-    state[:, 0:3] = torch.where(alive[:, None], state[:, 0:3], far_o)
-    state[:, 3:6] = torch.where(alive[:, None], state[:, 3:6], unit_x)
-    return _rows(state)
-
-
-def _far_rows_cols(state, alive):
-    """`_far_rows` of the [12, N] column state: dead lanes become far rays
-    (BIG, 0, 0) along +x in place; returns the kernel rows [8, N]."""
-    dev = state.device
-    far_o = device_vector((BIG, 0.0, 0.0), device=dev)[:, None]
-    unit_x = device_vector((1.0, 0.0, 0.0), device=dev)[:, None]
-    state[0:3] = torch.where(alive, state[0:3], far_o)
-    state[3:6] = torch.where(alive, state[3:6], unit_x)
-    return _rows_cols(state)
-
-
-def _rows_cols(state):
-    """RAY_EPS-offset kernel rows [8, N] of the [12, N] column state."""
-    rows = torch.zeros((8, state.shape[1]), dtype=torch.float32,
-                       device=state.device)
-    rows[0:3] = state[0:3] + state[3:6] * RAY_EPS
-    rows[3:6] = state[3:6]
-    return rows
-
-
-def sort_lanes_cols(state, alive, aabb8, n_super: int, budget: int):
-    """sort_lanes of the [12, N] column state (rows o.xyz, d.xyz,
-    throughput.xyz, radiance.xyz): dead lanes become far rays, K1 masks
-    every lane, one lex_sort_perm permutation gathers the columns, and the
-    batch is the first `budget` lanes rounded down to RB, within [RB, N].
-    Returns (the sorted state [12, N], perm [N], the batch's kernel rows
-    [8, s_width], their mask words [W, s_width]). Tallied as the "sort"
-    span."""
-    rb = pi.RB
-    width = state.shape[1]
-    s_width = max(rb, min(width, (int(budget) // rb) * rb))
-    with profiling.span("sort"):
-        rays_pre = _far_rows_cols(state, alive)
-        words_p = pi.cluster_masks_rows(aabb8, rays_pre, n_super)
-        dc = state[3:6]
-        octant = ((dc[0] < 0).to(torch.int32)
-                  + 2 * (dc[1] < 0).to(torch.int32)
-                  + 4 * (dc[2] < 0).to(torch.int32))
-        keys, word_slots = traverse._lex_sort_keys(
-            alive, octant, [words_p[i] for i in range(words_p.shape[0])],
-            n_super,
-        )
-        perm = traverse.lex_sort_perm(keys)
-        state = state[:, perm]
-        words = torch.stack([keys[i][perm[:s_width]] for i in word_slots],
-                            dim=0)
-        return state, perm, _rows_cols(state[:, :s_width]), words
-
-
-def _trace_compacted_cols(scene, o, d, key, sample, opts: TraceOptions,
-                          stream_ids):
-    """The columnar compacted trace (COLS): `_trace_compacted`'s schedule,
-    sorts, draws and SORT_EVERY rule with the lane state a [12, N] column
-    table that one lex_sort_perm permutation gathers a sorted bounce
-    (sort_lanes_cols), shaded by `_shade_vertex_cols`. Three lane rules are
-    the JAX package's: bounce 0's camera rays are cast in image order, then
-    flattened and padded to an RB multiple before their shade (padding
-    lanes: tri_idx -1, alive iota < n0); dead lanes become far rays
-    (BIG, 0, 0) along +x before every K1; the retired radiance stays three
-    columns up to the merge. Returns (radiance [..., 3], aux) as
-    `_trace_compacted`."""
-    has_lights = scene.light_p.shape[0] > 0
-    batch_shape = tuple(o.shape[:-1])
-    dev = o.device
-    schedule = opts.lane_schedule
-    n0 = 1
-    for s in batch_shape:
-        n0 *= s
-    n0p = -(-n0 // pi.RB) * pi.RB
-
-    # ---- bounce 0: full width, image order ----
-    t, tri_idx = traverse.cast_rays(scene, o, d, intersector="pallas",
-                                    sort=False)
-    state = torch.zeros((12, n0p), dtype=torch.float32, device=dev)
-    state[0:3, :n0] = o.reshape(n0, 3).T
-    state[3:6, :n0] = d.reshape(n0, 3).T
-    state[6:9] = 1.0
-    t0 = torch.zeros(n0p, dtype=torch.float32, device=dev)
-    t0[:n0] = t.reshape(n0)
-    idx0 = torch.full((n0p,), -1, dtype=tri_idx.dtype, device=dev)
-    idx0[:n0] = tri_idx.reshape(n0)
-    iota = torch.arange(n0p, dtype=torch.int32, device=dev)
-    alive = iota < n0
-    stream = torch.zeros(n0p, dtype=torch.int32, device=dev)
-    stream[:n0] = stream_ids.reshape(n0)
-    rays = torch.full((), n0, dtype=torch.int64, device=dev)
-    alive_counts = [rays]
-    uniforms = prng.uniforms_cols(key, sample, 0, stream, 6)
-    *cols, alive = _shade_vertex_cols(
-        scene, state[0:3], state[3:6], t0, idx0, alive, uniforms,
-        has_lights, state[6:9], state[9:12], opts.light_chunk,
-    )
-    state = torch.cat(cols)
-    _g, n_super, aabb8 = traverse.exact_cull_layout(scene)
-
-    retired_iota = []
-    retired_rad = []
-    overflow = torch.zeros((), dtype=torch.int64, device=dev)
-    for b in range(1, opts.depth):
-        n_alive = alive.sum()
-        alive_counts.append(n_alive)
-        if (b - 1) % SORT_EVERY:
-            # Skip-sort bounce: every lane in the previous bounce's order.
-            rays_pre = _far_rows_cols(state, alive)
-            words = pi.cluster_masks_rows(aabb8, rays_pre, n_super)
-            rays = rays + n_alive
-        else:
-            budget = (schedule[b - 1] if b - 1 < len(schedule)
-                      else schedule[-1])
-            state, perm, rays_pre, words = sort_lanes_cols(
-                state, alive, aabb8, n_super, budget)
-            s_width = rays_pre.shape[1]
-            overflow = overflow + torch.clamp(n_alive - s_width, min=0)
-            iota = iota[perm]
-            stream = stream[perm][:s_width]
-            # The tail is dead (or overflow, which poisons the render): its
-            # radiance is final.
-            retired_iota.append(iota[s_width:])
-            retired_rad.append(state[9:12, s_width:])
-            state = state[:, :s_width].contiguous()
-            iota = iota[:s_width]
-            alive = torch.arange(s_width, device=dev) < n_alive
-            # Alive lanes are a sorted prefix: min(n_alive, s_width) are
-            # cast.
-            rays = rays + torch.clamp(n_alive, max=s_width)
-        t, tri_idx = traverse.cast_presorted_rows(scene, rays_pre,
-                                                  words=words)
-        uniforms = prng.uniforms_cols(key, sample, b, stream, 6)
-        *cols, alive = _shade_vertex_cols(
-            scene, state[0:3], state[3:6], t, tri_idx, alive, uniforms,
-            has_lights, state[6:9], state[9:12], opts.light_chunk,
-        )
-        state = torch.cat(cols)
-
-    # ---- merge: each lane id appears exactly once ----
-    with profiling.span("merge"):
-        retired_iota.append(iota)
-        retired_rad.append(state[9:12])
-        merged = torch.empty((3, n0p), dtype=torch.float32, device=dev)
-        merged[:, torch.cat(retired_iota).long()] = torch.cat(retired_rad,
-                                                              dim=1)
-        radiance = v3c.stack(merged[:, :n0]).reshape(batch_shape + (3,))
-    aux = {
-        "rays_cast": rays,
-        "overflow": overflow,
-        "alive_counts": torch.stack(alive_counts),
-    }
-    return radiance, aux
+    o, d = layout.field(state, 0, 3), layout.field(state, 3, 6)
+    o.copy_(torch.where(alive[:, None], o, far_o))
+    d.copy_(torch.where(alive[:, None], d, unit_x))
+    return _rows(state, layout)
 
 
 def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions,
@@ -850,24 +790,17 @@ def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions,
                  rebuilds image order.
 
     The JAX package moves the state through the sort as lax.sort payload
-    columns; here one permutation gathers a packed [N, 12] state row, and
-    the stream ids [...] ride the same permutation (the JAX package
-    recomputes them from the lane id under its stream_base promise).
-
-    With SORT_EVERY > 1, bounces b with (b - 1) % SORT_EVERY != 0 skip the
-    sort: K1 and the sweep run on every lane in the previous bounce's
-    order, dead lanes as far rays, with no slice and no retirement, and
-    rays_cast grows by that bounce's live lanes. COLS routes to
-    `_trace_compacted_cols`.
+    columns; here one permutation gathers the lane state, and the stream
+    ids [...] ride the same permutation (the JAX package recomputes them
+    from the lane id under its stream_base promise). The state's layout is
+    COLUMNS where COLS is set at the call, else ROWS: only its lane axis,
+    its kernel rows and its segments differ.
 
     Each bounce's shade and the packing of its outputs is one segment
-    (first_segment, later_segment) of static shapes, run by
-    shade_graph.run: on the card from a CUDA graph, keyed by `tile` (the
-    sample's place in the frame, trace's stream_base) and the lane
-    budgets."""
-    if COLS:
-        return _trace_compacted_cols(scene, o, d, key, sample, opts,
-                                     stream_ids)
+    (layout.first, layout.later) of static shapes, run by shade_graph.run:
+    on the card from CUDA graphs, keyed by `tile` (the sample's place in
+    the frame, trace's stream_base) and the lane budgets."""
+    layout = COLUMNS if COLS else ROWS
     batch_shape = tuple(o.shape[:-1])
     dev = o.device
     schedule = opts.lane_schedule
@@ -877,14 +810,15 @@ def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions,
         n0 *= s
 
     def shade(state, t, tri_idx, alive, uniforms):
-        return shade_graph.run(later_segment, scene,
+        return shade_graph.run(layout.later, scene,
                                (state, t, tri_idx, alive, uniforms),
                                opts.light_chunk, tile=tile, widths=schedule)
 
     # ---- bounce 0: full width, image order ----
     state, alive = first_bounce(scene, o, d, key, sample, stream_ids,
-                                opts.light_chunk, tile=tile, widths=schedule)
-    n0p = state.shape[0]
+                                opts.light_chunk, tile=tile, widths=schedule,
+                                layout=layout)
+    n0p = state.shape[layout.axis]
     rays = torch.full((), n0, dtype=torch.int64, device=dev)
     alive_counts = [rays]
     # A lane's id is its flat position in the batch; padding lanes carry
@@ -900,20 +834,9 @@ def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions,
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
     for b in range(1, opts.depth):
         n_alive = alive.sum()
-        if (b - 1) % SORT_EVERY:
-            # Skip-sort bounce: every lane in the previous bounce's order.
-            rays_pre = _far_rows(state, alive)
-            words = pi.cluster_masks_rows(aabb8, rays_pre, n_super)
-            alive_counts.append(n_alive)
-            rays = rays + n_alive
-            t, tri_idx = traverse.cast_presorted_rows(scene, rays_pre,
-                                                      words=words)
-            uniforms = prng.uniforms(key, sample, b, stream, 6)
-            state, alive = shade(state, t, tri_idx, alive, uniforms)
-            continue
         budget = schedule[b - 1] if b - 1 < len(schedule) else schedule[-1]
         state, perm, rays_sorted, s_words = sort_lanes(
-            state, alive, aabb8, n_super, budget
+            state, alive, aabb8, n_super, budget, layout
         )
         s_width = rays_sorted.shape[1]
         alive_counts.append(n_alive)
@@ -924,8 +847,9 @@ def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions,
         # The tail is dead (or overflow, which poisons the render): its
         # radiance is final.
         retired_iota.append(iota[s_width:])
-        retired_rad.append(state[s_width:, 9:12])
-        state = state[:s_width].contiguous()
+        retired_rad.append(layout.field(
+            layout.lanes(state, slice(s_width, None)), 9, 12))
+        state = layout.lanes(state, slice(None, s_width)).contiguous()
         iota = iota[:s_width]
         alive = torch.arange(s_width, device=dev) < n_alive
         # Alive lanes are a sorted prefix: min(n_alive, s_width) are cast.
@@ -940,7 +864,7 @@ def _trace_compacted(scene, o, d, key, sample, opts: TraceOptions,
     # ---- merge: each lane id appears exactly once ----
     with profiling.span("merge"):
         retired_iota.append(iota)
-        retired_rad.append(state[:, 9:12])
+        retired_rad.append(layout.field(state, 9, 12))
         all_iota = torch.cat(retired_iota).long()
         merged = torch.empty((n0p, 3), dtype=torch.float32, device=dev)
         merged[all_iota] = torch.cat(retired_rad, dim=0)

@@ -2,7 +2,8 @@
 
 A segment is one bounce's shade and the packing of its outputs into the
 lane state: bounce 0's (integrator.first_segment) and each later bounce's
-(integrator.later_segment) of the compacted trace. Its shapes are static
+(integrator.later_segment) of the compacted trace, or their forms for the
+column layout (first_segment_cols, later_segment_cols). Its shapes are static
 (bounce 0 shades the padded frame, a later bounce exactly its lane
 budget), it makes no host sync, its constants are filled on the device and
 its Python branches read only static facts of the scene (env_tex, the
@@ -22,9 +23,9 @@ kernel entries called through light_cull's module attributes, each
 launch issued by the host inside its "light" span, and nothing of theirs
 is a graph's static buffer. The tail graph takes the head graph's outputs
 as its own inputs, so only the light pdf is copied in. The caller runs
-segments only on the compacted row path, which excludes the NaN check;
-every other path (the CPU, the full-width trace, COLS, the pool, refill)
-shades eagerly through the same physics (integrator._shade_vertex*).
+segments only on the compacted trace, in either lane layout, which
+excludes the NaN check; every other path (the CPU, the full-width trace,
+the pool, refill) shades eagerly through the same physics.
 
 The cache (`GRAPHS`): one `_Tile` for each (device, scene, tile), where a
 tile is a sample's place in the frame (trace's stream_base: each tile of

@@ -4,8 +4,8 @@ raytracer_odin_tpu/ops/shading_cols.py).
 Function for function the JAX module: the same reference citations and
 the same operation order, with every 3-vector a [3, N] column triple
 (utils/vec3c.py) and the six uniforms a tuple of [N] columns. The columnar
-compacted trace (integrator._trace_compacted_cols, RT_TPU_COLS=1) shades
-through it; every other route keeps the [..., 3] forms of ops/shading.py.
+compacted trace (integrator's COLUMNS layout, RT_TPU_COLS=1) shades through
+it; every other route keeps the [..., 3] forms of ops/shading.py.
 The only arithmetic difference from the row forms is the order of the
 three-term reductions (torch.sum there, left to right here), and shade's
 Lambert term, which the JAX module writes color * (cos / pi) where the row
@@ -18,7 +18,7 @@ import math
 
 import torch
 
-from raytracer_odin_tpu_torch.ops import light_cull, shading
+from raytracer_odin_tpu_torch.ops import shading
 from raytracer_odin_tpu_torch.utils import vec3c as v3
 from raytracer_odin_tpu_torch.utils.math3d import sq
 
@@ -137,22 +137,24 @@ def sample_direction(scene, mat_pos, mat_normal, mat_roughness, in_d,
     return v3.where(use_cos, d_cos, v3.where(use_light, d_light, d_vndf))
 
 
-def mixture_pdf(scene, mat_pos, mat_normal, mat_roughness, in_d, out_d,
-                has_lights: bool, light_chunk: int = 256):
-    """shading.mixture_pdf (shading.odin:153-162), columnar. From
-    light_cull.threshold() lights on, the light pdf is the culled sum (K5
-    on the card) behind a stack boundary, on any device, as the row form
-    takes it."""
+def bsdf_pdfs(mat_normal, mat_roughness, in_d, out_d):
+    """shading.bsdf_pdfs, columnar: (cos_pdf, vndf_pdf) of out_d, the
+    mixture's terms that read no light."""
     p_cos = cosine_weighted_pdf(mat_normal, out_d)
     p_vndf = vndf_pdf(mat_normal, v3.neg(in_d), sq(mat_roughness), out_d)
-    if has_lights:
-        if light_cull.serves(scene):
-            p_light = light_cull.light_pdf_sum_culled(
-                scene, v3.stack(mat_pos), v3.stack(out_d))
-        else:
-            p_light = light_pdf_sum(scene, mat_pos, out_d, chunk=light_chunk)
-        return (p_cos + p_light + p_vndf) / 3.0
-    return (p_cos + p_vndf * 2.0) / 3.0
+    return p_cos, p_vndf
+
+
+def mixture_pdf(scene, mat_pos, mat_normal, mat_roughness, in_d, out_d,
+                has_lights: bool, light_chunk: int = 256):
+    """shading.mixture_pdf (shading.odin:153-162), columnar: bsdf_pdfs,
+    the light pdf of shading.light_pdf behind a stack boundary (from
+    light_cull.threshold() lights on the culled sum, K5 on the card, on any
+    device, as the row form takes it), then shading.mix_pdfs."""
+    p_cos, p_vndf = bsdf_pdfs(mat_normal, mat_roughness, in_d, out_d)
+    p_light = (shading.light_pdf(scene, v3.stack(mat_pos), v3.stack(out_d),
+                                 light_chunk) if has_lights else None)
+    return shading.mix_pdfs(p_cos, p_light, p_vndf)
 
 
 def shade(mat_color, mat_normal, mat_metallic, mat_roughness, in_d, out_d):

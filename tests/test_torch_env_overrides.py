@@ -5,7 +5,8 @@ reads it, and either honoured or refused with a ValueError that names it:
   * at import: RT_TPU_LEAF, RT_TPU_RB, RT_TPU_RB_SUB, RT_TPU_MAX_EXACT,
     RT_TPU_COLS, RT_TPU_SORT_EVERY (one subprocess each: honoured values
     are held against the JAX package under the same environment, refused
-    ones must stop the import);
+    ones must stop the import; RT_TPU_SORT_EVERY takes 1 only, since the
+    port has no skip-sort cadence);
   * at call: RT_TPU_CHUNK_TRIS, RT_TPU_LIGHT_CULL_MIN (monkeypatch.setenv);
   * at scene build: RT_TPU_STREAM_TRIS;
   * RT_TPU_NO_NATIVE: the BVH and the PNG unfilter take the JAX package's
@@ -69,7 +70,7 @@ def _run(env, code, timeout=240):
     {"RT_TPU_LEAF": "30"}, {"RT_TPU_LEAF": "1024"}, {"RT_TPU_RB": "500"},
     {"RT_TPU_RB_SUB": "384"}, {"RT_TPU_MAX_EXACT": "2000"},
     {"RT_TPU_MAX_EXACT": "many"}, {"RT_TPU_COLS": "2"},
-    {"RT_TPU_SORT_EVERY": "0"},
+    {"RT_TPU_SORT_EVERY": "0"}, {"RT_TPU_SORT_EVERY": "2"},
 ], ids=lambda e: "=".join(next(iter(e.items()))))
 def test_refused_import_values(env):
     """A value the port cannot honour stops its import with a ValueError
@@ -162,8 +163,7 @@ from raytracer_odin_tpu_torch.utils import prng
 from tests.test_torch_render import _near
 from tests.torch_parity import torch_scene
 import tempfile
-assert (tinteg.COLS, tinteg.SORT_EVERY) == (jinteg.COLS, jinteg.SORT_EVERY)
-assert (tinteg.COLS, tinteg.SORT_EVERY) == (1, 2)
+assert tinteg.COLS == jinteg.COLS == 1
 host = jgltf.read_gltf(jassets.generate("cornell", tempfile.mkdtemp())["gltf"])
 js = jbuild.finish_scene(host)
 ts = torch_scene(js)
@@ -184,10 +184,10 @@ _near(tr.numpy(), jr)
 
 
 def test_honoured_trace_switches_match_jax():
-    """RT_TPU_COLS=1 and RT_TPU_SORT_EVERY=2 in both packages' environment:
-    the columnar trace with a skip-sort bounce, a compacted cornell sample
-    (16x16, depth 4) against the JAX package's."""
-    proc = _run({"RT_TPU_COLS": "1", "RT_TPU_SORT_EVERY": "2"}, _TRACE)
+    """RT_TPU_COLS=1 in both packages' environment: the column layout of
+    the compacted trace, a compacted cornell sample (16x16, depth 4)
+    against the JAX package's columnar trace."""
+    proc = _run({"RT_TPU_COLS": "1"}, _TRACE)
     assert proc.returncode == 0, proc.stderr[-4000:]
 
 

@@ -504,20 +504,6 @@ def test_cols_bounce1_kernels_bit_equal(cuda, monkeypatch, tmp_path):
     _k1_k2_bit_equal(sc, *swept[1])
 
 
-@pytest.mark.gpu
-def test_skip_sort_kernels_bit_equal(cuda, monkeypatch, tmp_path):
-    """K1 and K2 on a skip-sort bounce's batch (SORT_EVERY = 2, bounce 2:
-    unsorted, at bounce 1's width, dead lanes as far rays among the live
-    ones), each bit-equal to its plain version."""
-    sc, swept = _compacted_batches(cuda, tmp_path, monkeypatch,
-                                   SORT_EVERY=2)
-    words, rays = swept[2]
-    assert rays.shape[1] == swept[1][1].shape[1]
-    dead = torch.nonzero(rays[3] == 1.0).flatten()
-    assert dead.numel() and int(dead[0]) < rays.shape[1] - dead.numel()
-    _k1_k2_bit_equal(sc, words, rays)
-
-
 def _subprocess(env, code):
     import os
     import subprocess

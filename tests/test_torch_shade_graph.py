@@ -6,7 +6,8 @@ the card, graphed and eager renders are bit-equal on one card, on a 4 x 1
 mesh of one card, on the env-map and on the textured scene, and on the
 culled light path (K5 eager between each segment's two graphs) on the
 night city at 1 and 4 tiles and on the demo pushed over the threshold,
-where a wrapper on light_cull.light_sums_rows sees every K5 launch.
+where a wrapper on light_cull.light_sums_rows sees every K5 launch; the
+column layout (integrator.COLS) on the demo and on the night city.
 
 Imports no jax, so the card tests run on a machine without it:
 
@@ -106,6 +107,7 @@ def _key(scene, segment=integrator.later_segment, width=1024, chunk=256,
 
 @pytest.mark.parametrize("change", [
     dict(segment=integrator.first_segment),
+    dict(segment=integrator.later_segment_cols),
     dict(width=1536),
     dict(chunk=128),
     dict(tile=270 * 1920),
@@ -115,8 +117,9 @@ def _key(scene, segment=integrator.later_segment, width=1024, chunk=256,
 ])
 def test_graph_key_separates(monkeypatch, change):
     """Each fact the segment's Python reads gives another key for the same
-    scene object: bounce 0 against a later bounce, the width, the light
-    chunk, the tile, lights or none, the env map, and the light path (the
+    scene object: bounce 0 against a later bounce, the row layout's
+    segment against the column layout's, the width, the light chunk, the
+    tile, lights or none, the env map, and the light path (the
     threshold)."""
     monkeypatch.delenv("RT_TPU_LIGHT_CULL_MIN", raising=False)
     scene = _fake_scene()
@@ -168,14 +171,22 @@ def _render(scene, host, cfg, dev, tiles: int):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name,tiles", [("demo", 1), ("demo", 4),
-                                        ("envmap", 1), ("textured", 1)])
-def test_graphed_render_bit_equal(cuda, tmp_path, monkeypatch, name, tiles):
+@pytest.mark.parametrize("name,tiles,cols", [
+    pytest.param("demo", 1, 0, id="demo-1"),
+    pytest.param("demo", 4, 0, id="demo-4"),
+    pytest.param("envmap", 1, 0, id="envmap-1"),
+    pytest.param("textured", 1, 0, id="textured-1"),
+    pytest.param("demo", 1, 1, id="demo-1-cols"),
+])
+def test_graphed_render_bit_equal(cuda, tmp_path, monkeypatch, name, tiles,
+                                  cols):
     """Two steps of 2 spp (each graph replays twice a step) graphed, then
     eagerly: bit-equal Stats, rays cast and live lanes a bounce; every
     shade span of the steps is a replay; on the 4 x 1 mesh each tile has
-    its own graphs."""
+    its own graphs. cols: the column layout (integrator.COLS = 1), its
+    segments graphed as the row layout's are."""
     monkeypatch.delenv("RT_TPU_LIGHT_CULL_MIN", raising=False)
+    monkeypatch.setattr(integrator, "COLS", cols)
     host, scene = _scene(assets.generate(name, tmp_path)["gltf"], cuda)
     cfg = RenderConfig(width=320, height=184, ray_depth=8, samples=4,
                        samples_per_step=2, intersector="pallas",
@@ -231,15 +242,21 @@ def _night_or_demo(name, tmp_path, monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name,tiles", [("citynight", 1), ("citynight", 4),
-                                        ("demo", 1)])
+@pytest.mark.parametrize("name,tiles,cols", [
+    pytest.param("citynight", 1, 0, id="citynight-1"),
+    pytest.param("citynight", 4, 0, id="citynight-4"),
+    pytest.param("demo", 1, 0, id="demo-1"),
+    pytest.param("citynight", 1, 1, id="citynight-1-cols"),
+])
 def test_culled_light_path_graphed_bit_equal(cuda, tmp_path, monkeypatch,
-                                             name, tiles):
+                                             name, tiles, cols):
     """The night city (1,728 lights) at 1 and 4 tiles, and the demo pushed
     over the threshold (RT_TPU_LIGHT_CULL_MIN=1): each segment's head and
     tail graphed, K5 eager between them, then every segment eager:
     bit-equal Stats, rays cast and live lanes a bounce, one replay a shade
-    span, two graphs a segment, and the same K5 launches."""
+    span, two graphs a segment, and the same K5 launches. cols: the night
+    city in the column layout (integrator.COLS = 1)."""
+    monkeypatch.setattr(integrator, "COLS", cols)
     host, scene = _scene(_night_or_demo(name, tmp_path, monkeypatch), cuda)
     assert light_cull.serves(scene)
     cfg = RenderConfig(width=320, height=184, ray_depth=8, samples=4,

@@ -6,7 +6,10 @@ out in one piece; and shade_graph.run, with graphs standing in, serves a
 scene on the culled light pdf as head, K5, tail, and a scene on the dense
 sum as the whole segment, one replay a shade span. On the night city
 (1,728 lights, over the default threshold) and on the demo pushed over
-the threshold (RT_TPU_LIGHT_CULL_MIN=1).
+the threshold (RT_TPU_LIGHT_CULL_MIN=1); each segment in both lane
+layouts: packed rows (first, later) and the column table (first_cols,
+later_cols, shaded through ops/shading_cols.py, whose one-piece shade
+takes shading_cols.mixture_pdf).
 """
 
 import functools
@@ -21,11 +24,13 @@ from raytracer_odin_tpu_torch.ops import (
     light_cull,
     shade_graph,
     shading,
+    shading_cols,
     texture,
     traverse,
 )
 from raytracer_odin_tpu_torch.render import runtime
 from raytracer_odin_tpu_torch.utils import prng, profiling
+from raytracer_odin_tpu_torch.utils import vec3c as v3c
 from raytracer_odin_tpu_torch.utils.math3d import norm_l1, sq
 
 W, H = 24, 16  # 384 camera lanes
@@ -97,6 +102,35 @@ def _reference_shade(scene, o, d, t, tri_idx, alive, uniforms, throughput,
     return m["pos"], new_d, throughput, radiance, cont
 
 
+def _reference_shade_cols(scene, o, d, t, tri_idx, alive, uniforms,
+                          throughput, radiance):
+    """_reference_shade of column triples o, d, throughput, radiance
+    [3, N] and six uniform columns, through ops/shading_cols.py, the
+    light pdf inside shading_cols.mixture_pdf: (pos, new_d, throughput,
+    radiance [3, N], cont [N])."""
+    hit = (tri_idx >= 0) & alive
+    missed = (~(tri_idx >= 0)) & alive
+    if scene.env_tex >= 0:
+        env = texture.sample_env_cols(scene, d, scene.env_tex)
+        radiance = radiance + torch.where(missed, throughput * env, 0.0)
+    m = integrator._point_material(scene, v3c.stack(o), v3c.stack(d), t,
+                                   tri_idx)
+    normal = v3c.splat(m["normal"])
+    normal = torch.where(m["inside"], -normal, normal)
+    pos = o + d * t
+    new_d = shading_cols.sample_direction(scene, pos, normal,
+                                          m["roughness"], d, uniforms, True)
+    pdf = shading_cols.mixture_pdf(scene, pos, normal, m["roughness"], d,
+                                   new_d, True)
+    value = shading_cols.shade(v3c.splat(m["color"]), normal,
+                               m["metallic"], m["roughness"], d, new_d)
+    cont = (v3c.norm_l1(value) / pdf > 1e-5) & hit
+    radiance = radiance + torch.where(hit, throughput
+                                      * v3c.splat(m["emission"]), 0.0)
+    throughput = torch.where(cont, throughput * (value / pdf), throughput)
+    return pos, new_d, throughput, radiance, cont
+
+
 def _first_inputs(host, scene):
     key = prng.key_from_seed(SEED)
     fov = host.cam.fov_x * W / H
@@ -107,18 +141,38 @@ def _first_inputs(host, scene):
     return (o, d, t, tri_idx, prng.uniforms(key, 0, 0, sids, 6))
 
 
-def _later_inputs(host, scene):
-    """Bounce 1's inputs from bounce 0's eager segment: its lane state and
-    alive mask, the hits of its rays, the draws of its lanes."""
-    state, alive = integrator.first_segment(scene, *_first_inputs(host,
-                                                                  scene),
-                                            256)
-    t, tri_idx = traverse.cast_rays(scene, state[:, 0:3], state[:, 3:6],
+def _later_inputs(host, scene, first=integrator.first_segment):
+    """Bounce 1's inputs from bounce 0's eager segment `first`: its lane
+    state and alive mask, the hits of its rays, the draws of its lanes."""
+    state, alive = first(scene, *_first_inputs(host, scene), 256)
+    rows = state if first is integrator.first_segment else state.T
+    t, tri_idx = traverse.cast_rays(scene, rows[:, 0:3], rows[:, 3:6],
                                     intersector="pallas", sort=True,
                                     alive=alive)
-    sids = torch.arange(state.shape[0], dtype=torch.int32)
+    sids = torch.arange(rows.shape[0], dtype=torch.int32)
     uniforms = prng.uniforms(prng.key_from_seed(SEED), 0, 1, sids, 6)
     return (state, t, tri_idx, alive, uniforms)
+
+
+def _later_inputs_cols(host, scene):
+    return _later_inputs(host, scene, integrator.first_segment_cols)
+
+
+def _padded_cols(inputs):
+    """Bounce 0's inputs flattened into column form and padded to whole RB
+    blocks (padding lanes dead: tri_idx -1), as first_head_cols takes
+    them: (o, d, t, tri_idx, alive, uniform columns)."""
+    o, d, t, tri_idx, uniforms = inputs
+    n0 = t.numel()
+    n0p = -(-n0 // integrator.pi.RB) * integrator.pi.RB
+    pad = n0p - n0
+    o, d = (torch.cat([x.reshape(n0, 3), torch.zeros(pad, 3)]).T
+            for x in (o, d))
+    t = torch.cat([t.reshape(n0), torch.zeros(pad)])
+    tri_idx = torch.cat([tri_idx.reshape(n0),
+                         torch.full((pad,), -1, dtype=tri_idx.dtype)])
+    uniforms = torch.cat([uniforms.reshape(n0, 6), torch.zeros(pad, 6)])
+    return (o, d, t, tri_idx, torch.arange(n0p) < n0, uniforms.unbind(-1))
 
 
 def _reference(segment, scene, inputs):
@@ -136,11 +190,24 @@ def _reference(segment, scene, inputs):
         alive = torch.zeros(n0p, dtype=torch.bool)
         alive[:n0] = cont.reshape(n0)
         return state, alive
-    state, t, tri_idx, alive, uniforms = inputs
-    pos, new_d, thr, rad, cont = _reference_shade(
-        scene, state[:, 0:3], state[:, 3:6], t, tri_idx, alive, uniforms,
-        state[:, 6:9], state[:, 9:12])
-    return torch.cat([pos, new_d, thr, rad], dim=1), cont
+    if segment == "later":
+        state, t, tri_idx, alive, uniforms = inputs
+        pos, new_d, thr, rad, cont = _reference_shade(
+            scene, state[:, 0:3], state[:, 3:6], t, tri_idx, alive,
+            uniforms, state[:, 6:9], state[:, 9:12])
+        return torch.cat([pos, new_d, thr, rad], dim=1), cont
+    if segment == "first_cols":
+        o, d, t, tri_idx, alive, uniforms = _padded_cols(inputs)
+        n = t.numel()
+        out = _reference_shade_cols(scene, o, d, t, tri_idx, alive,
+                                    uniforms, torch.ones(3, n),
+                                    torch.zeros(3, n))
+    else:
+        state, t, tri_idx, alive, uniforms = inputs
+        out = _reference_shade_cols(
+            scene, state[0:3], state[3:6], t, tri_idx, alive,
+            uniforms.unbind(-1), state[6:9], state[9:12])
+    return torch.cat(out[:4]), out[4]
 
 
 def _bits(x):
@@ -155,13 +222,18 @@ def _assert_bit_equal(got, want):
         assert torch.equal(_bits(g), _bits(w))
 
 
+# Each segment by its lane layout: rows (first, later), columns
+# (first_cols, later_cols).
 SEGMENTS = {"first": (integrator.first_segment, _first_inputs),
-            "later": (integrator.later_segment, _later_inputs)}
+            "later": (integrator.later_segment, _later_inputs),
+            "first_cols": (integrator.first_segment_cols, _first_inputs),
+            "later_cols": (integrator.later_segment_cols,
+                           _later_inputs_cols)}
 
 
 @pytest.mark.parametrize("night_or_demo", ["citynight", "demo"],
                          indirect=True)
-@pytest.mark.parametrize("which", ["first", "later"])
+@pytest.mark.parametrize("which", list(SEGMENTS))
 def test_split_segment_bit_equal(night_or_demo, which, monkeypatch):
     """head, light_pdf_sum_culled of its pos along new_d, tail: bit-equal
     to the segment called whole and to the shade in one piece, with one K5
@@ -213,7 +285,7 @@ def _run_as_on_the_card(monkeypatch, segment, scene, inputs):
 
 @pytest.mark.parametrize("night_or_demo", ["citynight", "demo"],
                          indirect=True)
-@pytest.mark.parametrize("which", ["first", "later"])
+@pytest.mark.parametrize("which", list(SEGMENTS))
 def test_run_serves_the_culled_path_by_halves(night_or_demo, which,
                                               monkeypatch):
     """On the culled light path run replays the head, calls K5 once
@@ -232,7 +304,7 @@ def test_run_serves_the_culled_path_by_halves(night_or_demo, which,
     _assert_bit_equal(out, want)
 
 
-@pytest.mark.parametrize("which", ["first", "later"])
+@pytest.mark.parametrize("which", list(SEGMENTS))
 def test_run_serves_the_dense_path_whole(scenes, which, monkeypatch):
     """The demo's 4 lights under the default threshold: the dense sum
     inside one replay of the whole segment, no K5."""

@@ -1,7 +1,8 @@
 """The columnar shade stage and trace of the PyTorch port against the JAX
 package, on the CPU: utils/vec3c.py, ops/shading_cols.py,
 prng.uniforms_cols, texture.sample_env_cols and the columnar compacted
-trace (integrator._trace_compacted_cols, RT_TPU_COLS=1).
+trace (the compacted loop in its column layout, integrator.COLUMNS,
+RT_TPU_COLS=1).
 
 Tolerances. Each shading_cols function is held against the JAX package's
 columnar function and against the port's row form at the tolerances of
