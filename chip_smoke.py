@@ -5,8 +5,9 @@ Drives the port's paths on one NVIDIA GPU, one phase per line with its
 wall time:
 
   1. card      name and power limit (nvidia-smi)
-  2. build     the CUDA kernels K1-K5 (nvcc, ptxas -v report: registers a
-               thread; K2, K3 and K4 are instances of one sweep kernel)
+  2. build     the CUDA kernels K1-K5 and the shade kernel (nvcc, ptxas -v
+               report: registers a thread; K2, K3 and K4 are instances of
+               one sweep kernel; the shade kernel's stack and spills)
                and the host lib; SASS instructions a test in each
                kernel's inner loop (cuobjdump -sass, sass_counts; the SASS
                is written next to the renders as sass.txt)
@@ -23,7 +24,16 @@ wall time:
                calibration plus the timed steps; Mrays/s over live path
                segments, per-bounce alive counts, overflow (must be 0), peak
                memory, and the launch counts of every kernel (K1 and K2 8 per
-               step and 8 in calibration, K3-K5 none)
+               step and 8 in calibration, K3-K5 none; the shade kernel 8
+               per step, replayed in the segment graphs, none in
+               calibration)
+  5b. shade    the shade kernel against the plain segment (the row
+               layout's PyTorch, its engagement patched off) on the demo's
+               bounce-0 segment of the full frame and its sorted,
+               compacted bounce-1 segment, exactly (alive bit for bit,
+               floats equal), one FUSED launch each; device ms a call of
+               the kernel and of the plain segment in CUDA graphs, and the
+               bound of the bytes a lane moves
   6. check     the render is finite and of the frame's shape, and the
                golden images of tests/golden/ reproduce on the card
   7. the paths of the second slice, each at 1920x1080, depth 8, seed 0,
@@ -35,7 +45,9 @@ wall time:
                   SM clock under its load; the culled pdf against the dense
                   sum on a slice of the first and on the whole second,
                   where lanes through a light's edge may differ: see
-                  edge_flips)
+                  edge_flips); the shade kernel's HEAD and TAIL around K5
+                  against the plain halves at bounces 0 and 1 as in 5b,
+                  and 16 shade kernel launches a step
        city       811 clusters, two-level layout (g = 4): K1 and K2 over
                   chunk-major lists
        city24     city with blocks=24, 207,234 triangles, streamed: K1 and
@@ -151,9 +163,11 @@ wall time:
  18. with --profile: one more step of each path under torch.profiler,
      device time by kernel class, kernels a step and the device's busy
      share
- 19. the kernels JSON line (K1-K5 and K1 with its tmax row; each with its
-     design and registers, its SASS counts, SM clock and issue floors, K2-K5
-     with their warp-vote rates; K1 and K2 with their checks on the mesh
+ 19. the kernels JSON line (K1-K5, K1 with its tmax row and the shade
+     kernel, whose launches are counted on the demo, citynight, city,
+     city24 and brute paths; each with its design and registers, K1-K5
+     with their SASS counts, SM clock and issue floors, K2-K5 with their
+     warp-vote rates; K1 and K2 with their checks on the mesh
      shard's, the pool wave's, the refill iteration's, the columnar
      bounce-1 and the accuracy configs' bounce-1 batches, and their
      launches in the accuracy phase; K5 on the columnar citynight batch),
@@ -245,6 +259,19 @@ SASS_MARKERS = {"K1": ("FMUL", 6, 0), "K1 tmax": ("FMUL", 6, 0),
 DESIGN = {"K1": "hopper-redesign", "K1 tmax": "hopper-redesign",
           "K2": "hopper-redesign", "K3": "hopper-redesign",
           "K4": "hopper-redesign", "K5": "hopper-redesign"}
+# The shade kernel's modes (csrc/shade_kernels.cu) by their symbols in the
+# ptxas report, and the bytes a lane of each moves through HBM at bounce 0
+# and at a later bounce: bounce 0 reads the camera ray, t, the triangle
+# index and six draws (56 B), a later bounce its state, t, the index,
+# alive and six draws (81 B); FUSED and TAIL write the state and alive
+# (49 B); HEAD writes its [n, 20] buffer and hit (81 B), which TAIL reads
+# with the light pdf (85 B). Shade rows, texels and lights come from L2.
+SHADE_SYMBOLS = {"fused": "_Z12shade_kernelILi0E",
+                 "head": "_Z12shade_kernelILi1E",
+                 "tail": "_Z12shade_kernelILi2E"}
+SHADE_LANE_BYTES = {("fused", 0): 56 + 49, ("fused", 1): 81 + 49,
+                    ("head", 0): 56 + 81, ("head", 1): 81 + 81,
+                    ("tail", 0): 85 + 49, ("tail", 1): 85 + 49}
 # The list cap of traverse.sweep_lists (its default): a streamed cast's
 # lists beyond it are uncapped ascending ids, the JAX package's count -1.
 LIST_CAP = 256
@@ -1063,6 +1090,163 @@ def dense_pdf_check(lc, scene, o, d, dev, reps):
         "lists": counts.numel()}
 
 
+def ptxas_shade(report: str) -> dict:
+    """Registers a thread, stack frame and spill bytes of each shade kernel
+    mode, from the ptxas -v report."""
+    out, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = next((k for k, sym in SHADE_SYMBOLS.items()
+                        if m.group(1).startswith(sym)), None)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(cur, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(cur, {})["registers"] = int(m.group(1))
+            cur = None
+    return out
+
+
+def graph_ms(fn, dev, reps: int) -> float:
+    """Device milliseconds a call of fn: `reps` calls captured into one
+    CUDA graph after an eager warm-up, its replay timed by CUDA events, so
+    the host's enqueue stays out, as it does for the main path's graphed
+    segments; time_ms on the CPU."""
+    import torch
+
+    if dev.type != "cuda":
+        return time_ms(fn, dev, reps)
+    fn()
+    sync(dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    sync(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def shade_batches(rt, integ, trav, prng, scene, cfg, fov_x, dev):
+    """The shade kernel's inputs in the calibration sample of `cfg`, built
+    by the main path's own functions: bounce 0's (the camera rays, their
+    hits and draws) and bounce 1's (bounce 0's lane state sorted and cut
+    to bounce 1's lane budget from auto_lane_schedule, as the compacted
+    trace does, with the hits of its rays, its alive mask and draws)."""
+    import torch
+
+    key = prng.key_from_seed(cfg.seed)
+    o, d = rt.camera_rays(scene, key, 0, fov_x, cfg.width, cfg.height)
+    t, idx = trav.cast_rays(scene, o, d, intersector="pallas", sort=False)
+    sids = torch.arange(o.shape[:-1].numel(), dtype=torch.int32,
+                        device=dev).reshape(o.shape[:-1])
+    first = (o, d, t, idx, prng.uniforms(key, 0, 0, sids, 6))
+    state, alive = integ.first_segment(scene, *first, 256)
+    budget = rt.auto_lane_schedule(scene, cfg, fov_x, device=dev)[0]
+    _g, n_super, aabb8 = trav.exact_cull_layout(scene)
+    n_alive = alive.sum()
+    state, _perm, rays, words = integ.sort_lanes(state.clone(), alive,
+                                                 aabb8, n_super, budget)
+    width = rays.shape[1]
+    state = state[:width].contiguous()
+    t1, idx1 = trav.cast_presorted_rows(scene, rays, words)
+    alive1 = torch.arange(width, device=dev) < n_alive
+    u1 = prng.uniforms(key, 0, 1, torch.arange(width, dtype=torch.int32,
+                                               device=dev), 6)
+    return first, (state, t1, idx1, alive1, u1)
+
+
+def shade_differ(got, want) -> tuple:
+    """(elements that differ, largest finite difference) of two output
+    tuples: floats by value (a NaN equal to a NaN), the rest exactly; a
+    flat output is compared in the other's shape."""
+    import torch
+
+    n, err = 0, 0.0
+    for g, w in zip(got, want, strict=True):
+        g = g.reshape(w.shape)
+        if g.dtype != w.dtype:
+            raise AssertionError(f"shade: dtype {g.dtype} against {w.dtype}")
+        if w.dtype.is_floating_point:
+            same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+            fin = torch.isfinite(g) & torch.isfinite(w)
+            if bool(fin.any()):
+                err = max(err, float((g[fin] - w[fin]).abs().max()))
+        else:
+            same = g == w
+        n += int((~same).sum())
+    return n, err
+
+
+def measure_shade(integ, lc, sk, scene, bounce: int, ins, dev, reps):
+    """The shade kernel against its plain version (the row layout's
+    PyTorch, with the kernel's engagement patched off) on one batch of
+    bounce 0 or a later bounce, exactly: alive bit for bit, floats equal.
+    On the dense light path the segment is one FUSED launch; on the culled
+    path HEAD against the plain head and TAIL against the plain tail, each
+    given the same light pdf, then the whole segment. A mode's device ms a
+    call and its plain version's (graph_ms), its bound (SHADE_LANE_BYTES
+    at the HBM peak) and its launches a call."""
+    seg = integ.first_segment if bounce == 0 else integ.later_segment
+    head, tail = seg.halves
+    lanes = ins[2].numel()
+
+    def plain(fn):
+        def call():
+            with setting(sk, "engages", lambda device: False):
+                return fn()
+        return call
+
+    if lc.serves(scene):
+        h = head(scene, *ins, 256)
+        hp = plain(lambda: head(scene, *ins, 256))()
+        pl = lc.light_pdf_sum_culled(scene, h[0], h[1])
+        pl_p = pl.reshape(hp[2].shape)
+        modes = {"head": (lambda: head(scene, *ins, 256),
+                          plain(lambda: head(scene, *ins, 256))),
+                 "tail": (lambda: tail(scene, *h, pl, 256),
+                          plain(lambda: tail(scene, *hp, pl_p, 256)))}
+    else:
+        modes = {"fused": (lambda: seg(scene, *ins, 256),
+                           plain(lambda: seg(scene, *ins, 256)))}
+    modes["segment"] = (lambda: seg(scene, *ins, 256),
+                        plain(lambda: seg(scene, *ins, 256)))
+    out = {"lanes": lanes}
+    for mode, (kern, ref) in modes.items():
+        before = sk.launch.launches
+        got = kern()
+        launches = sk.launch.launches - before
+        n, err = shade_differ(got, ref())
+        if n:
+            raise AssertionError(f"shade kernel {mode}, bounce {bounce}: "
+                                 f"{n} elements differ from the plain "
+                                 f"version (largest {err})")
+        m = {"launches": launches, "max_abs_err": err}
+        if mode != "segment":
+            bound, by = bound_ms(lanes * SHADE_LANE_BYTES[mode, min(bounce,
+                                                                    1)], 0.0)
+            m.update(ms=graph_ms(kern, dev, reps),
+                     plain_ms=graph_ms(ref, dev, max(2, reps // 4)),
+                     bound_ms=bound, bound_by=by,
+                     lane_bytes=SHADE_LANE_BYTES[mode, min(bounce, 1)])
+        out[mode] = m
+    return out
+
+
 def kernel_batches(rt, integ, trav, prng, pi, scene, cfg, fov_x, dev):
     """The kernels' inputs in the calibration sample of `cfg`, built by the
     main path's own functions: the bounce-0 camera rays in tile order with
@@ -1343,6 +1527,7 @@ def main(argv=None) -> int:
     from raytracer_odin_tpu_torch.ops import integrator as integ
     from raytracer_odin_tpu_torch.ops import light_cull as lc
     from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
+    from raytracer_odin_tpu_torch.ops import shade_kernel as sk
     from raytracer_odin_tpu_torch.ops import traverse as trav
     from raytracer_odin_tpu_torch.render import output
     from raytracer_odin_tpu_torch.render import runtime as rt
@@ -1375,10 +1560,12 @@ def main(argv=None) -> int:
         host_build.result()  # raises if g++ failed
     print(report.strip(), flush=True)
     regs = ptxas_registers(report)
+    shade_ptxas = ptxas_shade(report)
     sass = {}
     if not rehearsal:
         sass = sass_counts(cuda_build._SO, OUT_DIR / "sass.txt")
     print(f"  registers a thread {json.dumps(regs)}", flush=True)
+    print(f"  shade kernel modes {json.dumps(shade_ptxas)}", flush=True)
     print(f"  SASS inner loops {json.dumps(sass)}", flush=True)
     ph.done("build", s)
 
@@ -1416,18 +1603,37 @@ def main(argv=None) -> int:
     ph.done("kernels", s, f"bit-equal; bounce-1 batch {rays1.shape[1]} rays "
             f"({kb['n_alive1']} alive)")
 
-    # 5. render: the main path, launches counted from zero
+    # 5. render: the main path, launches counted from zero; the shade
+    # kernel's too (its replays in the segment graphs, one a bounce; none
+    # in calibration, which shades uncompacted in PyTorch)
     s = time.perf_counter()
     counters = launch_counters(pi, lc)
-    demo = render_path(rt, scene, cfg, fov_x, dev, counters, steps)
+    with_shade = dict(counters, shade=(sk.launch, "launches"))
+    demo = render_path(rt, scene, cfg, fov_x, dev, with_shade, steps)
     res = demo["res"]
     print_render(demo, steps, card)
     if res.overflow != 0 or res.lane_schedule is None:
         raise AssertionError(f"compaction overflow {res.overflow}: the "
                              "render fell back to uncompacted")
-    check_launches("demo", demo, {"K1": DEPTH, "K2": DEPTH},
+    check_launches("demo", demo, {"K1": DEPTH, "K2": DEPTH, "shade": DEPTH},
                    {"K1": DEPTH, "K2": DEPTH}, rehearsal)
     ph.done("render", s, f"{demo['mrays']:.3f} Mrays/s")
+
+    # 5b. the shade kernel against the plain segment at the main path's
+    # shapes: the demo's bounce-0 and bounce-1 segments, one FUSED launch
+    s = time.perf_counter()
+    sb = shade_batches(rt, integ, trav, prng, scene, cfg, fov_x, dev)
+    shade_demo = {b: measure_shade(integ, lc, sk, scene, b, sb[b], dev, reps)
+                  for b in (0, 1)}
+    del sb
+    for b, m in shade_demo.items():
+        print(f"  shade kernel, demo bounce {b}: {json.dumps(m)}", flush=True)
+        if not rehearsal and (m["fused"]["launches"] != 1
+                              or m["segment"]["launches"] != 1):
+            raise AssertionError(f"shade kernel: demo bounce {b} launched "
+                                 f"{m['fused']['launches']} times, want 1")
+    ph.done("shade", s, "bit-equal; lanes "
+            f"{[m['lanes'] for m in shade_demo.values()]}")
 
     # 6. what came out is right
     s = time.perf_counter()
@@ -1488,10 +1694,23 @@ def main(argv=None) -> int:
                 checks["K5 bounce 0"] = measure_k5(
                     lc, pscene, pk["shade_o"], pk["shade_d"], dev, reps,
                     slice_blocks, clock=True)
+                # the shade kernel's halves around K5, HEAD then TAIL
+                sb = shade_batches(rt, integ, trav, prng, pscene, pcfg,
+                                   pfov, dev)
+                for b in (0, 1):
+                    m = measure_shade(integ, lc, sk, pscene, b, sb[b], dev,
+                                      reps)
+                    if not rehearsal and (
+                            m["head"]["launches"], m["tail"]["launches"],
+                            m["segment"]["launches"]) != (1, 1, 2):
+                        raise AssertionError(f"shade kernel: {name} bounce "
+                                             f"{b} launches {m}")
+                    checks[f"shade bounce {b}"] = m
+                del sb
             del pk
         for k, m in checks.items():
             print(f"  [{name}] {k}: {json.dumps(m)}", flush=True)
-        r = render_path(rt, pscene, pcfg, pfov, dev, counters, path_steps)
+        r = render_path(rt, pscene, pcfg, pfov, dev, with_shade, path_steps)
         print_render(r, path_steps, card)
         pres = r["res"]
         if pres.overflow != 0:
@@ -1504,7 +1723,10 @@ def main(argv=None) -> int:
             want = {"K1": DEPTH, sweep: DEPTH}
             if pscene.num_lights >= lc.threshold():
                 want["K5"] = DEPTH
-            check_launches(name, r, want, want, rehearsal)
+            # one shade kernel a bounce, two (HEAD, TAIL) around K5
+            halves = 2 if pscene.num_lights >= lc.threshold() else 1
+            check_launches(name, r, dict(want, shade=halves * DEPTH), want,
+                           rehearsal)
         else:
             if pres.lane_schedule is not None:
                 raise AssertionError("brute: compacted")
@@ -1802,6 +2024,29 @@ def main(argv=None) -> int:
                "bounce1": k5_b1, "dense_pdf": dense_pdf,
                "cols_citynight": paths["cols citynight"]["k5"],
                "launches_by_path": by_path("K5")}),
+        # the shade kernel: the demo's sorted, compacted bounce-1 segment
+        # (one FUSED launch; 7 of a step's 8 segments are later bounces);
+        # bounce0: the camera rays' segment; citynight: HEAD and TAIL
+        # around K5 at bounces 0 and 1. No TPU kernel is replaced: XLA
+        # fused the chain for the JAX package. Its launches are the
+        # replays of the segment graphs.
+        dict({"name": "shade_kernel", "route": "cuda",
+              "source": "raytracer_odin_tpu_torch/csrc/shade_kernels.cu",
+              "replaces": None, "launches": demo["launches"]["shade"]},
+             **{f: shade_demo[1]["fused"][f] for f in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+             library_ms=None, plain_is_yardstick=False, card=card,
+             design="hopper", registers=shade_ptxas.get("fused", {}).get(
+                 "registers"), ptxas=shade_ptxas,
+             launches_per_step=(demo["per_step"]["shade"] or [0])[0],
+             launches_in_calibration=demo["calibration"]["shade"],
+             lanes=shade_demo[1]["lanes"], bounce0=shade_demo[0],
+             citynight_bounce0=night["shade bounce 0"],
+             citynight_bounce1=night["shade bounce 1"],
+             launches_by_path=dict(
+                 {"demo": demo["launches"]["shade"]},
+                 **{p: paths[p]["launches"]["shade"]
+                    for p in ("citynight", "city", "city24", "brute")})),
     ]
     summary = {p: {k: v[k] for k in ("triangles", "clusters", "lights", "g",
                                      "streamed", "mrays", "peak_gib")}

@@ -1,7 +1,8 @@
-"""Build and load the port's CUDA kernels K1-K5 (csrc/intersect_kernels.cu).
+"""Build and load the port's CUDA kernels: K1-K5 (csrc/intersect_kernels.cu)
+and the row layout's shade kernel (csrc/shade_kernels.cu).
 
-nvcc compiles the source into a shared library with a plain C interface at
-first use, into the gitignored `raytracer_odin_tpu_torch/build/` directory,
+nvcc compiles both sources into one shared library with a plain C interface
+at first use, into the gitignored `raytracer_odin_tpu_torch/build/` directory,
 and ctypes loads it. No PyTorch header is compiled, so the build takes
 seconds. Nothing here runs at import: the CPU tests import every module on
 a machine without nvcc.
@@ -19,7 +20,8 @@ from pathlib import Path
 from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
 
 _PKG_ROOT = Path(__file__).resolve().parents[1]
-SOURCE = _PKG_ROOT / "csrc" / "intersect_kernels.cu"
+SOURCES = (_PKG_ROOT / "csrc" / "intersect_kernels.cu",
+           _PKG_ROOT / "csrc" / "shade_kernels.cu")
 BUILD_DIR = _PKG_ROOT / "build"
 # The kernel layout of this process (pallas_intersect.LEAF, RB, RB_SUB, read
 # from the environment at import) is compiled in: one library a layout.
@@ -56,7 +58,8 @@ def build() -> str:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}.tmp")
     defines = [f"-D{k}={v}" for k, v in LAYOUT.items()]
-    cmd = [nvcc_path(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(SOURCE)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+           *map(str, SOURCES)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     report = proc.stdout + proc.stderr
     if proc.returncode != 0:
@@ -67,12 +70,13 @@ def build() -> str:
 
 def load() -> ctypes.CDLL:
     """The loaded kernel library, built first if it is missing or older
-    than its source."""
+    than any of its sources."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        if not _SO.exists() or _SO.stat().st_mtime < SOURCE.stat().st_mtime:
+        newest = max(src.stat().st_mtime for src in SOURCES)
+        if not _SO.exists() or _SO.stat().st_mtime < newest:
             build()
         lib = ctypes.CDLL(str(_SO))
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -84,5 +88,9 @@ def load() -> ctypes.CDLL:
             getattr(lib, name).restype = i
         lib.rt_brute_launch.argtypes = [p, i, p, i, p, p]
         lib.rt_brute_launch.restype = i
+        lib.rt_shade_launch.argtypes = [i, p, p, p]
+        lib.rt_shade_launch.restype = i
+        lib.rt_shade_abi.argtypes = [p]
+        lib.rt_shade_abi.restype = i
         _lib = lib
         return _lib

@@ -27,6 +27,15 @@ first_segment and later_segment; or COLUMNS, the JAX package's columnar
 trace, a [12, N] column table shaded through ops/shading_cols.py by
 first_segment_cols and later_segment_cols. Both run the same loop, the
 same sorts and draws, and the same shading graphs on the card.
+
+The row layout's segments and their halves run their PyTorch here on the
+CPU and the shade kernel (ops/shade_kernel.py, csrc/shade_kernels.cu) on a
+CUDA device, which computes the same values in one pass over the lanes;
+any other device raises. The device is read in one place
+(_kernel_serves). A segment composes its head, the light pdf and its tail
+in both cases, but on the card a scene on the dense light pdf takes the
+kernel's one fused launch. The column layout's segments keep their
+PyTorch code everywhere.
 """
 
 from __future__ import annotations
@@ -37,8 +46,10 @@ import torch
 
 from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
 from raytracer_odin_tpu_torch.ops import (
+    light_cull,
     probes,
     shade_graph,
+    shade_kernel,
     shading,
     shading_cols,
     texture,
@@ -337,10 +348,23 @@ def _head_light_pdf(scene, head, light_chunk):
                       light_chunk)
 
 
+def _kernel_serves(x) -> bool:
+    """Whether the shade kernel shades the row layout's lanes of x: on a
+    CUDA device (shade_kernel.engages). On the CPU the PyTorch below does;
+    any other device raises, and nothing falls back."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no shading for tensors on {x.device}")
+    return shade_kernel.engages(x.device)
+
+
 def first_head(scene, o, d, t, tri_idx, uniforms, light_chunk: int):
     """Bounce 0's segment up to the light pdf: the shade of the camera rays
     o, d [..., 3] at their hits t, tri_idx [...] with draws uniforms
-    [..., 6], as HEAD."""
+    [..., 6], as HEAD. On the card the shade kernel's HEAD (the same eight
+    tensors, flat over the lanes)."""
+    if _kernel_serves(t):
+        return shade_kernel.head(scene, True, o, d, t, tri_idx, None,
+                                 uniforms, light_chunk)
     batch_shape = tuple(o.shape[:-1])
     dev = o.device
     alive = torch.ones(batch_shape, dtype=torch.bool, device=dev)
@@ -357,7 +381,11 @@ def first_tail(scene, pos, new_d, p_cos, p_vndf, value, hit, throughput,
     """Bounce 0's segment from the light pdf on, flattened into the lane
     state [Npad, 12] (o, d, throughput, radiance; Npad is the lane count
     rounded up to RB) with its alive mask [Npad]. Padding lanes are
-    dead."""
+    dead. On the card the shade kernel's TAIL."""
+    if _kernel_serves(hit):
+        return shade_kernel.tail(scene, True, pos, new_d, p_cos, p_vndf,
+                                 value, hit, throughput, radiance, p_light,
+                                 light_chunk)
     dev = pos.device
     n0 = pos.shape[:-1].numel()
     n0p = -(-n0 // pi.RB) * pi.RB
@@ -377,7 +405,11 @@ def first_segment(scene, o, d, t, tri_idx, uniforms, light_chunk: int):
     """Bounce 0's shading segment, first_head then first_tail: the shade of
     the camera rays o, d [..., 3] at their hits t, tri_idx [...] with
     draws uniforms [..., 6], flattened into the lane state [Npad, 12]
-    with its alive mask [Npad]."""
+    with its alive mask [Npad]. On the card a scene on the dense light pdf
+    takes one FUSED launch of the shade kernel."""
+    if _kernel_serves(t) and not light_cull.serves(scene):
+        return shade_kernel.fused(scene, True, o, d, t, tri_idx, None,
+                                  uniforms, light_chunk)
     head = first_head(scene, o, d, t, tri_idx, uniforms, light_chunk)
     return first_tail(scene, *head, _head_light_pdf(scene, head,
                                                     light_chunk),
@@ -390,7 +422,10 @@ first_segment.halves = (first_head, first_tail)
 def later_head(scene, state, t, tri_idx, alive, uniforms, light_chunk: int):
     """A later compacted bounce's segment up to the light pdf: the shade of
     the packed lane state [N, 12] at its hits t, tri_idx [N] with draws
-    uniforms [N, 6], as HEAD."""
+    uniforms [N, 6], as HEAD. On the card the shade kernel's HEAD."""
+    if _kernel_serves(t):
+        return shade_kernel.head(scene, False, state, None, t, tri_idx,
+                                 alive, uniforms, light_chunk)
     return _segment_head(scene, state[:, 0:3], state[:, 3:6], t, tri_idx,
                          alive, uniforms, state[:, 6:9], state[:, 9:12])
 
@@ -398,7 +433,11 @@ def later_head(scene, state, t, tri_idx, alive, uniforms, light_chunk: int):
 def later_tail(scene, pos, new_d, p_cos, p_vndf, value, hit, throughput,
                radiance, p_light, light_chunk: int):
     """A later bounce's segment from the light pdf on, packed again:
-    (state [N, 12], alive [N])."""
+    (state [N, 12], alive [N]). On the card the shade kernel's TAIL."""
+    if _kernel_serves(hit):
+        return shade_kernel.tail(scene, False, pos, new_d, p_cos, p_vndf,
+                                 value, hit, throughput, radiance, p_light,
+                                 light_chunk)
     alive, throughput = _segment_tail(p_cos, p_vndf, value, hit, throughput,
                                       p_light)
     return torch.cat([pos, new_d, throughput, radiance], dim=1), alive
@@ -409,7 +448,12 @@ def later_segment(scene, state, t, tri_idx, alive, uniforms,
     """The shading segment of a later compacted bounce, later_head then
     later_tail: the shade of the packed lane state [N, 12] at its hits t,
     tri_idx [N] with draws uniforms [N, 6], packed again. Returns
-    (state [N, 12], alive [N]); refill shades its lanes with it too."""
+    (state [N, 12], alive [N]); refill shades its lanes with it too. On
+    the card a scene on the dense light pdf takes one FUSED launch of the
+    shade kernel."""
+    if _kernel_serves(t) and not light_cull.serves(scene):
+        return shade_kernel.fused(scene, False, state, None, t, tri_idx,
+                                  alive, uniforms, light_chunk)
     head = later_head(scene, state, t, tri_idx, alive, uniforms,
                       light_chunk)
     return later_tail(scene, *head, _head_light_pdf(scene, head,

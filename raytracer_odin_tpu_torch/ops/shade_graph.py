@@ -11,7 +11,9 @@ light count against light_cull.threshold(), row_spec, tex_kinds) and the
 light chunk. So a CUDA graph captured once replays the very kernels of
 the eager call, and a graphed render is bit-equal to an eager one; the
 host enqueues a graph launch and a few input copies where it enqueued
-hundreds of kernels.
+hundreds of kernels. On the card the row layout's segments are launches of
+the shade kernel (ops/shade_kernel.py): a graph holds one launch of it, the
+column layout's graphs their torch ops.
 
 `run` decides from its input how the segment is served. On the CPU
 (`engages` false) it is called. On a CUDA device, a scene on the dense
@@ -49,7 +51,7 @@ from typing import NamedTuple
 
 import torch
 
-from raytracer_odin_tpu_torch.ops import light_cull
+from raytracer_odin_tpu_torch.ops import light_cull, shade_kernel
 from raytracer_odin_tpu_torch.utils import profiling
 
 # Tiles kept across the process (a tile is a sample's place in the frame
@@ -84,14 +86,18 @@ def run(segment, scene, tensors: tuple, light_chunk: int, tile=None,
         widths=None):
     """segment(scene, *tensors, light_chunk), replayed from CUDA graphs
     where `engages`, else called; tallied as one "shade" span either way,
-    and one replay where graphs served it. `tile` and `widths` (the
-    sample's lane budgets) place the call in the cache. On the card the
-    returned tensors are a graph's outputs, rewritten by its next
+    one replay where graphs served it, and one `shade_kernel` count where
+    the shade kernel ran in it (its launches, shade_kernel.launch, grew:
+    launched eagerly or repeated by a replayed graph). `tile` and `widths`
+    (the sample's lane budgets) place the call in the cache. On the card
+    the returned tensors are a graph's outputs, rewritten by its next
     replay."""
+    graphed = engages(scene, tensors[0].device)
     with profiling.span("shade"):
-        if not engages(scene, tensors[0].device):
-            return segment(scene, *tensors, light_chunk)
-        if light_cull.serves(scene):
+        launched = shade_kernel.launch.launches
+        if not graphed:
+            out = segment(scene, *tensors, light_chunk)
+        elif light_cull.serves(scene):
             head, tail = segment.halves
             h = GRAPHS.replay(head, scene, tensors, light_chunk, tile,
                               widths)
@@ -101,7 +107,10 @@ def run(segment, scene, tensors: tuple, light_chunk: int, tile=None,
         else:
             out = GRAPHS.replay(segment, scene, tensors, light_chunk, tile,
                                 widths)
-        profiling.count(REPLAYS)
+        if graphed:
+            profiling.count(REPLAYS)
+        if shade_kernel.launch.launches > launched:
+            profiling.count(shade_kernel.COUNTER)
         return out
 
 
@@ -109,6 +118,8 @@ class _Graph(NamedTuple):
     graph: torch.cuda.CUDAGraph
     inputs: tuple
     outputs: tuple
+    # launches of the shade kernel its capture recorded
+    kernels: int
 
 
 class _Tile:
@@ -171,6 +182,7 @@ class ShadeGraphs:
                     if dst is not src:
                         dst.copy_(src)
             g.graph.replay()
+        shade_kernel.launch.launches += g.kernels
         return g.outputs
 
 
@@ -178,10 +190,12 @@ def _capture(tile: _Tile, segment, scene, tensors, light_chunk) -> _Graph:
     """Capture segment on the tile's stream into its pool, after one eager
     warm-up run there. Its inputs are `tensors`, each taken as it is where
     it is an output of one of the tile's graphs (a tail's head outputs),
-    else a static copy."""
+    else a static copy. The shade kernel's launches in the warm-up and the
+    capture are taken back out of its count: only replays add them."""
     held = {id(x) for g in tile.graphs.values() for x in g.outputs}
     inputs = tuple(x if id(x) in held else torch.empty_like(x).copy_(x)
                    for x in tensors)
+    launched = shade_kernel.launch.launches
     current = torch.cuda.current_stream()
     tile.stream.wait_stream(current)
     with torch.cuda.stream(tile.stream):
@@ -192,9 +206,12 @@ def _capture(tile: _Tile, segment, scene, tensors, light_chunk) -> _Graph:
     profiling.count("host_syncs")
     with torch.cuda.graph(graph, pool=tile.pool, stream=tile.stream,
                           capture_error_mode="thread_local"):
+        warm = shade_kernel.launch.launches
         outputs = segment(scene, *inputs, light_chunk)
+    kernels = shade_kernel.launch.launches - warm
+    shade_kernel.launch.launches = launched
     profiling.count(CAPTURES)
-    return _Graph(graph, inputs, outputs)
+    return _Graph(graph, inputs, outputs, kernels)
 
 
 GRAPHS = ShadeGraphs()

@@ -240,7 +240,9 @@ class PhaseTimer:
 # shade_graph_replays and shade_graph_captures (ops/shade_graph.py: a
 # shading segment replayed from its CUDA graph, a graph captured),
 # light_launches (ops/light_cull.py: a launch of K5, the culled light pdf's
-# kernel, whose calls the span "light" wraps with their lists).
+# kernel, whose calls the span "light" wraps with their lists),
+# shade_kernel (ops/shade_graph.py: a "shade" span in which the shade
+# kernel of ops/shade_kernel.py launched, eagerly or in a replayed graph).
 PROCESS = PhaseTimer()
 span = PROCESS.span
 count = PROCESS.count
