@@ -226,6 +226,10 @@ def _read_gltf(path: Path) -> HostScene:
     doc, buffers = _parse_container(path)
     g = _Gltf(doc, buffers, path.parent)
     scene = HostScene()
+    # Each primitive's triangle arrays, joined once at the end: appending
+    # them one primitive at a time copies the arrays so far each time, which
+    # grows with the square of the primitives.
+    parts: list[dict] = []
 
     texture_cache: dict[str, int] = {}
 
@@ -376,7 +380,7 @@ def _read_gltf(path: Path) -> HostScene:
             else np.zeros((ntri, 3, 2), np.float32)
         )
 
-        scene.append_triangles(
+        parts.append(dict(
             p=pos_w[:, 0].astype(np.float32),
             u=e1.astype(np.float32),
             v=e2.astype(np.float32),
@@ -391,7 +395,7 @@ def _read_gltf(path: Path) -> HostScene:
             tan2=tan[:, 1].astype(np.float32),
             tan3=tan[:, 2].astype(np.float32),
             mat_index=np.full(ntri, material_index, np.int32),
-        )
+        ))
 
     identity = np.eye(4, dtype=np.float32)
     if "scene" in doc:
@@ -403,4 +407,7 @@ def _read_gltf(path: Path) -> HostScene:
     for r in roots:
         populate(r, identity)
 
+    if parts:
+        scene.append_triangles(**{k: np.concatenate([p[k] for p in parts])
+                                  for k in parts[0]})
     return scene
