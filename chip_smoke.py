@@ -26,7 +26,8 @@ wall time:
                memory, and the launch counts of every kernel (K1 and K2 8 per
                step and 8 in calibration, K3-K5 none; the shade kernel 8
                per step, replayed in the segment graphs, none in
-               calibration)
+               calibration; the draw kernel 9 per step and 9 in
+               calibration: the jitter and one call a bounce)
   5b. shade    the shade kernel against the plain segment (the row
                layout's PyTorch, its engagement patched off) on the demo's
                bounce-0 segment of the full frame and its sorted,
@@ -34,6 +35,13 @@ wall time:
                floats equal), one FUSED launch each; device ms a call of
                the kernel and of the plain segment in CUDA graphs, and the
                bound of the bytes a lane moves
+  5c. draws    the draw kernel (csrc/prng_kernels.cu) against the plain
+               chain of utils/prng on a frame's 2,073,600 lanes at n = 6
+               and 2 and the demo's 1,899,008-lane bounce-1 budget at
+               n = 6, bit for bit, rows and columns, one launch a call;
+               device ms a launch, the plain chain's in a CUDA graph and
+               its launches a call, host us a call of each, and the bound
+               of the bytes a lane moves (28 B at n = 6, 12 B at n = 2)
   6. check     the render is finite and of the frame's shape, and the
                golden images of tests/golden/ reproduce on the card
   7. the paths of the second slice, each at 1920x1080, depth 8, seed 0,
@@ -163,8 +171,8 @@ wall time:
  18. with --profile: one more step of each path under torch.profiler,
      device time by kernel class, kernels a step and the device's busy
      share
- 19. the kernels JSON line (K1-K5, K1 with its tmax row and the shade
-     kernel, whose launches are counted on the demo, citynight, city,
+ 19. the kernels JSON line (K1-K5, K1 with its tmax row, the draw kernel
+     with its three batches, and the shade kernel, whose launches are counted on the demo, citynight, city,
      city24 and brute paths; each with its design and registers, K1-K5
      with their SASS counts, SM clock and issue floors, K2-K5 with their
      warp-vote rates; K1 and K2 with their checks on the mesh
@@ -272,6 +280,14 @@ SHADE_SYMBOLS = {"fused": "_Z12shade_kernelILi0E",
 SHADE_LANE_BYTES = {("fused", 0): 56 + 49, ("fused", 1): 81 + 49,
                     ("head", 0): 56 + 81, ("head", 1): 81 + 81,
                     ("tail", 0): 85 + 49, ("tail", 1): 85 + 49}
+# The draw kernel's batches (csrc/prng_kernels.cu): name, lanes, draws a
+# lane and tag: a frame's bounce-0 draws and its camera jitter, and the
+# demo's bounce-1 budget of lanes in a sorted order. A lane reads its
+# stream id (4 B) and writes its draws (4 B each): 28 B at n = 6, 12 B at 2.
+DRAW_CASES = (("frame bounce 0", 1920 * 1080, 6, 0),
+              ("bounce-1 batch", 1_899_008, 6, 1),
+              ("frame jitter", 1920 * 1080, 2, 0x7E11))
+DRAW_SEED = 3_000_000_019
 # The list cap of traverse.sweep_lists (its default): a streamed cast's
 # lists beyond it are uncapped ascending ids, the JAX package's count -1.
 LIST_CAP = 256
@@ -1247,6 +1263,91 @@ def measure_shade(integ, lc, sk, scene, bounce: int, ins, dev, reps):
     return out
 
 
+def plain_launches(fn, dev) -> int:
+    """Device kernels one call of fn launches, counted by torch.profiler
+    (copies and memsets left out, as the benchmark counts kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if dev.type != "cuda":
+        return 0
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(dev)
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset")))
+
+
+def host_us(fn, dev, reps: int) -> float:
+    """Host microseconds a call of fn: `reps` calls back to back after a
+    warm-up, the card drained before and after (the enqueue alone while
+    the card keeps up)."""
+    fn()
+    sync(dev)
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t) * 1e6 / reps
+    sync(dev)
+    return us
+
+
+def measure_draws(prng, dk, dev, reps, scale: int = 1):
+    """The draw kernel against the plain chain (utils/prng.plain_cols) on
+    DRAW_CASES (lanes / scale), bit for bit: one launch a call; the
+    kernel's device ms a launch (CUDA events over launches of prepared
+    arguments), the plain chain's (graph_ms) and its launches a call, the
+    host us a call of each, and the bound of the bytes a lane moves."""
+    import torch
+
+    key = prng.key_from_seed(DRAW_SEED)
+    gen = torch.Generator().manual_seed(DRAW_SEED)
+    out = {}
+    for name, lanes, n, tag in DRAW_CASES:
+        lanes //= scale
+        if name.startswith("frame"):
+            sids = torch.arange(lanes, dtype=torch.int32)
+        else:
+            sids = torch.randperm(2 * lanes, generator=gen)[:lanes].to(
+                torch.int32)
+        sids = sids.to(dev)
+
+        def call():
+            return prng.uniforms(key, 7, tag, sids, n)
+
+        def plain():
+            return torch.stack(prng.plain_cols(key, 7, tag, sids, n), -1)
+
+        before = dk.launch.launches
+        got = call()
+        launches = dk.launch.launches - before
+        cols = torch.stack(prng.uniforms_cols(key, 7, tag, sids, n), -1)
+        want = plain()
+        differ = int((got.view(torch.int32) != want.view(torch.int32)).sum()
+                     + (cols.view(torch.int32)
+                        != want.view(torch.int32)).sum())
+        if differ or (dev.type == "cuda" and launches != 1):
+            raise AssertionError(f"draw kernel, {name}: {differ} draws "
+                                 f"differ from the plain chain, "
+                                 f"{launches} launches")
+        bound, by = bound_ms(lanes * (4 + 4 * n), 0.0)
+        m = {"lanes": lanes, "n": n, "launches": launches, "differ": 0,
+             "bound_ms": bound, "bound_by": by, "lane_bytes": 4 + 4 * n,
+             "plain_ms": graph_ms(plain, dev, max(2, reps // 4)),
+             "plain_launches": plain_launches(plain, dev),
+             "host_us": host_us(call, dev, reps),
+             "plain_host_us": host_us(plain, dev, max(2, reps // 4))}
+        if dev.type == "cuda":
+            args, _out, _keep = dk.prepare(key, 7, tag, sids, n, False)
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            m["ms"] = time_ms(lambda: dk.launch(args, stream), dev, reps)
+            m["share_of_bound"] = bound / m["ms"]
+        out[name] = m
+    return out
+
+
 def kernel_batches(rt, integ, trav, prng, pi, scene, cfg, fov_x, dev):
     """The kernels' inputs in the calibration sample of `cfg`, built by the
     main path's own functions: the bounce-0 camera rays in tile order with
@@ -1527,6 +1628,7 @@ def main(argv=None) -> int:
     from raytracer_odin_tpu_torch.ops import integrator as integ
     from raytracer_odin_tpu_torch.ops import light_cull as lc
     from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
+    from raytracer_odin_tpu_torch.ops import prng_kernel as dk
     from raytracer_odin_tpu_torch.ops import shade_kernel as sk
     from raytracer_odin_tpu_torch.ops import traverse as trav
     from raytracer_odin_tpu_torch.render import output
@@ -1608,15 +1710,18 @@ def main(argv=None) -> int:
     # in calibration, which shades uncompacted in PyTorch)
     s = time.perf_counter()
     counters = launch_counters(pi, lc)
-    with_shade = dict(counters, shade=(sk.launch, "launches"))
+    with_shade = dict(counters, shade=(sk.launch, "launches"),
+                      draw=(dk.launch, "launches"))
     demo = render_path(rt, scene, cfg, fov_x, dev, with_shade, steps)
     res = demo["res"]
     print_render(demo, steps, card)
     if res.overflow != 0 or res.lane_schedule is None:
         raise AssertionError(f"compaction overflow {res.overflow}: the "
                              "render fell back to uncompacted")
-    check_launches("demo", demo, {"K1": DEPTH, "K2": DEPTH, "shade": DEPTH},
-                   {"K1": DEPTH, "K2": DEPTH}, rehearsal)
+    # the draw kernel: the jitter and one call a bounce, in every sample
+    check_launches("demo", demo, {"K1": DEPTH, "K2": DEPTH, "shade": DEPTH,
+                                  "draw": DEPTH + 1},
+                   {"K1": DEPTH, "K2": DEPTH, "draw": DEPTH + 1}, rehearsal)
     ph.done("render", s, f"{demo['mrays']:.3f} Mrays/s")
 
     # 5b. the shade kernel against the plain segment at the main path's
@@ -1634,6 +1739,15 @@ def main(argv=None) -> int:
                                  f"{m['fused']['launches']} times, want 1")
     ph.done("shade", s, "bit-equal; lanes "
             f"{[m['lanes'] for m in shade_demo.values()]}")
+
+    # 5c. the draw kernel alone against the plain chain at the main path's
+    # lane counts
+    s = time.perf_counter()
+    draws = measure_draws(prng, dk, dev, reps, 1 if not rehearsal else 1024)
+    for name, m in draws.items():
+        print(f"  draw kernel, {name}: {json.dumps(m)}", flush=True)
+    ph.done("draws", s, "bit-equal, rows and columns; lanes "
+            f"{[m['lanes'] for m in draws.values()]}")
 
     # 6. what came out is right
     s = time.perf_counter()
@@ -1720,7 +1834,8 @@ def main(argv=None) -> int:
             if pres.lane_schedule is None:
                 raise AssertionError(f"{name}: no lane schedule")
             sweep = "K4" if pscene.stream else "K2"
-            want = {"K1": DEPTH, sweep: DEPTH}
+            # the draw kernel: the jitter and one call a bounce
+            want = {"K1": DEPTH, sweep: DEPTH, "draw": DEPTH + 1}
             if pscene.num_lights >= lc.threshold():
                 want["K5"] = DEPTH
             # one shade kernel a bounce, two (HEAD, TAIL) around K5
@@ -1730,7 +1845,8 @@ def main(argv=None) -> int:
         else:
             if pres.lane_schedule is not None:
                 raise AssertionError("brute: compacted")
-            check_launches(name, r, {"K3": DEPTH}, {}, rehearsal)
+            check_launches(name, r, {"K3": DEPTH, "draw": DEPTH + 1}, {},
+                           rehearsal)
         mean = check_frame(pres, h, w)
         frames[name] = pres.stats.total[0].cpu().clone()
         output.save_png(pres.stats, OUT_DIR / f"{name}.png")
@@ -2047,6 +2163,20 @@ def main(argv=None) -> int:
                  {"demo": demo["launches"]["shade"]},
                  **{p: paths[p]["launches"]["shade"]
                     for p in ("citynight", "city", "city24", "brute")})),
+        # the draw kernel: a frame's bounce-0 draws (n = 6); the demo's
+        # bounce-1 batch and the camera jitter (n = 2) beside it. No TPU
+        # kernel is replaced: XLA fused the chain for the JAX package.
+        dict({"name": "draw_kernel", "route": "cuda",
+              "source": "raytracer_odin_tpu_torch/csrc/prng_kernels.cu",
+              "replaces": None, "launches": demo["launches"]["draw"]},
+             **{f: draws["frame bounce 0"].get(f) for f in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "lanes",
+                 "plain_launches", "host_us", "plain_host_us")},
+             library_ms=None, plain_is_yardstick=False, card=card,
+             design="hopper", max_abs_err=0.0,
+             launches_per_step=(demo["per_step"]["draw"] or [0])[0],
+             launches_in_calibration=demo["calibration"]["draw"],
+             cases=draws),
     ]
     summary = {p: {k: v[k] for k in ("triangles", "clusters", "lights", "g",
                                      "streamed", "mrays", "peak_gib")}

@@ -1,7 +1,8 @@
-"""Build and load the port's CUDA kernels: K1-K5 (csrc/intersect_kernels.cu)
-and the row layout's shade kernel (csrc/shade_kernels.cu).
+"""Build and load the port's CUDA kernels: K1-K5 (csrc/intersect_kernels.cu),
+the row layout's shade kernel (csrc/shade_kernels.cu) and the draw kernel
+(csrc/prng_kernels.cu).
 
-nvcc compiles both sources into one shared library with a plain C interface
+nvcc compiles the sources into one shared library with a plain C interface
 at first use, into the gitignored `raytracer_odin_tpu_torch/build/` directory,
 and ctypes loads it. No PyTorch header is compiled, so the build takes
 seconds. Nothing here runs at import: the CPU tests import every module on
@@ -21,7 +22,8 @@ from raytracer_odin_tpu_torch.ops import pallas_intersect as pi
 
 _PKG_ROOT = Path(__file__).resolve().parents[1]
 SOURCES = (_PKG_ROOT / "csrc" / "intersect_kernels.cu",
-           _PKG_ROOT / "csrc" / "shade_kernels.cu")
+           _PKG_ROOT / "csrc" / "shade_kernels.cu",
+           _PKG_ROOT / "csrc" / "prng_kernels.cu")
 BUILD_DIR = _PKG_ROOT / "build"
 # The kernel layout of this process (pallas_intersect.LEAF, RB, RB_SUB, read
 # from the environment at import) is compiled in: one library a layout.
@@ -92,5 +94,9 @@ def load() -> ctypes.CDLL:
         lib.rt_shade_launch.restype = i
         lib.rt_shade_abi.argtypes = [p]
         lib.rt_shade_abi.restype = i
+        lib.rt_draw_launch.argtypes = [p, p]
+        lib.rt_draw_launch.restype = i
+        lib.rt_draw_abi.argtypes = [p]
+        lib.rt_draw_abi.restype = i
         _lib = lib
         return _lib

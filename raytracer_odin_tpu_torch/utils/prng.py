@@ -8,16 +8,26 @@ the port draws exactly the JAX package's bits.
 torch has no uint32 arithmetic to rely on, so the words live in int32:
 multiplies and adds wrap to the same low 32 bits, and the logical right
 shift is the arithmetic one masked to the shifted-in width.
+
+On a CUDA device the draws are one launch of the draw kernel
+(ops/prng_kernel.py, csrc/prng_kernels.cu), which computes this chain in
+uint32 and gives its bits; on the CPU the chain below runs (`plain_cols`).
+Every call is the program's span "draw" (utils/profiling.py).
 """
 
 from __future__ import annotations
 
 import torch
 
+from raytracer_odin_tpu_torch.ops import prng_kernel
+from raytracer_odin_tpu_torch.utils import profiling
+
 _M32 = 0xFFFFFFFF
 
 # Tag for the camera-jitter draw (distinct from bounce tags 0..depth-1).
 JITTER_TAG = 0x7E11
+# The program's span around each call of uniforms and uniforms_cols.
+SPAN = "draw"
 
 
 def key_from_seed(seed: int) -> tuple:
@@ -71,9 +81,8 @@ def _to_unit(w):
     return _srl(w, 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def uniforms_cols(key, samples, tags, sids, n: int):
-    """`uniforms` as a tuple of n [...] columns: the same draws, no final
-    stack (the columnar shade, ops/shading_cols.py, reads them apart)."""
+def plain_cols(key, samples, tags, sids, n: int):
+    """The plain chain of torch ops: uniforms_cols on any device."""
     k0, k1 = key
     dev = sids.device
     a = _i32(samples, dev) ^ _i32(k0, dev)
@@ -86,8 +95,20 @@ def uniforms_cols(key, samples, tags, sids, n: int):
     return tuple(_to_unit(w) for w in outs[:n])
 
 
+def uniforms_cols(key, samples, tags, sids, n: int):
+    """`uniforms` as a tuple of n [...] columns: the same draws, no final
+    stack (the columnar shade, ops/shading_cols.py, reads them apart)."""
+    with profiling.span(SPAN):
+        if sids.device.type == "cuda":
+            return prng_kernel.draws(key, samples, tags, sids, n, cols=True)
+        return plain_cols(key, samples, tags, sids, n)
+
+
 def uniforms(key, samples, tags, sids, n: int):
     """[..., n] uniforms addressed by (sample, tag, stream-id) counters
     under `key` (the word pair of key_from_seed). `samples`/`tags` may be
     python ints or int tensors, broadcast against the int tensor `sids`."""
-    return torch.stack(uniforms_cols(key, samples, tags, sids, n), dim=-1)
+    with profiling.span(SPAN):
+        if sids.device.type == "cuda":
+            return prng_kernel.draws(key, samples, tags, sids, n)
+        return torch.stack(plain_cols(key, samples, tags, sids, n), dim=-1)

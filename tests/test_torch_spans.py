@@ -171,10 +171,10 @@ def test_report_keeps_phases_and_adds_spans(monkeypatch):
 
 def test_render_phases_compacted(cube_gltf):
     """A compacted CPU render (pallas, compact="auto"): one step span a
-    step; inside the steps a cast and a shade a bounce and a sort a bounce
-    after the first; one calibration, uncompacted, whose casts and shades
-    fall outside the steps; the host syncs are the calibration's and the
-    final read's."""
+    step; inside the steps a cast, a shade and a draw a bounce, a draw for
+    the camera jitter, and a sort a bounce after the first; one
+    calibration, uncompacted, whose casts, shades and draws fall outside
+    the steps; the host syncs are the calibration's and the final read's."""
     host, scene = _scene(cube_gltf)
     depth, steps = 3, 3
     cfg = RenderConfig(width=32, height=16, ray_depth=depth, samples=steps,
@@ -187,9 +187,11 @@ def test_render_phases_compacted(cube_gltf):
     in_step = {k: v.calls for k, v in ph.step_spans.items()}
     assert in_step == {"step": steps, "cast": steps * depth,
                        "shade": steps * depth, "sort": steps * (depth - 1),
-                       "merge": steps, "accumulate": steps}
+                       "merge": steps, "accumulate": steps,
+                       "draw": steps * (depth + 1)}
     assert calls == dict(in_step, calibrate=1, cast=(steps + 1) * depth,
-                         shade=(steps + 1) * depth)
+                         shade=(steps + 1) * depth,
+                         draw=(steps + 1) * (depth + 1))
     assert ph.counters == {"host_syncs": 2} and ph.step_counters == {}
     step = ph.spans["step"]
     assert step.self_ns < step.total_ns
@@ -206,8 +208,9 @@ def test_render_phases_compacted(cube_gltf):
 
 
 def test_render_phases_uncompacted_and_debug_nans(cube_gltf):
-    """Uncompacted: no sort or merge span, no calibration; --debug-nans
-    counts one host sync a sample inside its step."""
+    """Uncompacted: no sort or merge span, no calibration, a draw a bounce
+    and one for the jitter each sample; --debug-nans counts one host sync
+    a sample inside its step."""
     host, scene = _scene(cube_gltf)
     cfg = RenderConfig(width=16, height=16, ray_depth=2, samples=4,
                        samples_per_step=2, intersector="pallas",
@@ -215,7 +218,7 @@ def test_render_phases_uncompacted_and_debug_nans(cube_gltf):
     ph = runtime.render_scene(scene, cfg, host.cam.fov_x, device="cpu",
                               debug_nans=True).phases
     assert {k: v.calls for k, v in ph.step_spans.items()} == {
-        "step": 2, "cast": 8, "shade": 8, "accumulate": 4}
+        "step": 2, "cast": 8, "shade": 8, "accumulate": 4, "draw": 12}
     assert ph.step_counters == {"host_syncs": 4}
     assert ph.counters == {"host_syncs": 5}
 
